@@ -1,0 +1,77 @@
+"""Build and load the port's CUDA kernels from the sources in this package.
+
+Each ``csrc/*.cu`` file has a plain C interface and no PyTorch headers, so
+``nvcc`` builds it into a shared library in seconds; the library is loaded
+with :mod:`ctypes`.  Libraries go to ``build/torch_ext/`` at the root of the
+checkout, named by a hash of the source and the flags: a changed source
+builds anew, an unchanged one is loaded as it is.  A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    name: str
+    path: Path
+    seconds: float   # 0.0 when an up-to-date library was found
+    ptxas: str       # what ``-Xptxas -v`` reported when it was built
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
+    if CUDA_HOME is None or not nvcc.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return str(nvcc)
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` for sm_90a unless an up-to-date library
+    exists.  Returns where it is and what the compiler reported."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return BuildInfo(name, lib, 0.0, log.read_text())
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    report = proc.stdout + proc.stderr
+    log.write_text(report)
+    os.replace(tmp, lib)
+    return BuildInfo(name, lib, seconds, report)
+
+
+@functools.lru_cache(maxsize=None)
+def sem_spmm_lib() -> ctypes.CDLL:
+    """``sem_spmm.cu``, built at first use, with its entry point's C
+    signature declared."""
+    lib = ctypes.CDLL(str(build("sem_spmm").path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sem_spmm_batch.argtypes = [p, i, p, p, i, p, i, p, p, p,
+                                   i, i, i, i, p]
+    lib.sem_spmm_batch.restype = i
+    return lib

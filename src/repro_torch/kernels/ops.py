@@ -1,0 +1,80 @@
+"""Entry points to the SpMM kernel: the one-shot product over a whole
+ChunkedTiles and the engine's per-batch step."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import ChunkedTiles
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.sem_spmm import spmm_tiles, spmm_tiles_acc
+
+
+def pick_variant(T: int) -> str:
+    """Per-matrix execution-path dispatch (the SCSR/COO hybrid analogue).
+
+    The JAX package sends ``T <= 2048`` to its densify variant from napkin
+    math about a TPU's matrix unit; that threshold does not carry over.
+    Only the gather kernel exists on the card so far, so every ``T`` takes
+    it; the H100's gather-vs-densify crossover is measured once the densify
+    kernel is ported (see ROADMAP.md)."""
+    return "gather"
+
+
+def to_device(a, device: torch.device, dtype=None):
+    """Array or tensor -> tensor on ``device``.  A numpy array is copied
+    (store planes are read-only memmap views) and uint16 planes travel as
+    int16 bits; a tensor already there is returned as it is."""
+    if a is None:
+        return None
+    if isinstance(a, np.ndarray):
+        a = np.array(a)
+        a = torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+    t = torch.as_tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def spmm_kernel(ct: ChunkedTiles, x, variant: str | None = None,
+                device: DeviceLike = None) -> torch.Tensor:
+    """``out = A @ X`` through the kernel; A as ChunkedTiles (numpy planes,
+    or tensors already resident on ``device``), X (n, p).  Returns
+    (n_rows, p) float32 on ``device``."""
+    device = resolve_device(device)
+    variant = variant or pick_variant(ct.T)
+    x = to_device(x, device, torch.float32)
+    x_pad = torch.zeros((ct.padded_cols, x.shape[1]), dtype=torch.float32,
+                        device=device)
+    x_pad[: x.shape[0]] = x
+    out = spmm_tiles(to_device(ct.meta, device, torch.int32),
+                     to_device(ct.row_local, device),
+                     to_device(ct.col_local, device),
+                     to_device(ct.vals, device, torch.float32), x_pad,
+                     T=ct.T, n_tile_rows=ct.n_tile_rows, variant=variant)
+    return out[: ct.n_rows]
+
+
+def spmm_kernel_batch(meta, n_valid, rows, cols, vals, x_pad, out_blocks, *,
+                      T: int, variant: str | None = None,
+                      device: DeviceLike = None) -> torch.Tensor:
+    """SEM-streaming step: apply one chunk batch read from the slow tier
+    and accumulate into ``out_blocks`` (n_tile_rows, T, p), in place.
+
+    ``meta`` and ``n_valid`` (the batch's real chunk count; the rest are
+    tail pads) are device tensors like any other plane; ``rows``/``cols``
+    may be uint16 (int16 bits), int32, or an optimized store's uint8
+    deltas; ``vals is None`` denotes a binary store.  Arrays are moved to
+    ``device``; a tensor ``out_blocks`` already there is updated in place
+    and returned."""
+    device = resolve_device(device)
+    variant = variant or pick_variant(T)
+    out_blocks = to_device(out_blocks, device, torch.float32)
+    n_tile_rows, _, p = out_blocks.shape
+    if not isinstance(n_valid, torch.Tensor):
+        n_valid = np.asarray(n_valid, np.int32).reshape(1)
+    n_valid = to_device(n_valid, device, torch.int32).reshape(1)
+    spmm_tiles_acc(to_device(meta, device, torch.int32), n_valid,
+                   to_device(rows, device), to_device(cols, device),
+                   to_device(vals, device, torch.float32),
+                   to_device(x_pad, device, torch.float32),
+                   out_blocks.view(n_tile_rows * T, p), T=T, variant=variant)
+    return out_blocks

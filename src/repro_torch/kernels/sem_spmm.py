@@ -1,0 +1,199 @@
+"""The tiled SpMM kernel of the semi-external pass (the paper's compute
+hot-spot): wrappers around the CUDA kernel in ``csrc/sem_spmm.cu``, each
+with its plain PyTorch version beside it.
+
+* :func:`spmm_tiles_acc` applies ONE chunk batch of a streaming pass to a
+  running accumulator, in place: ``acc (n_tile_rows*T, p) += A_batch @
+  x_pad``.  Chunks at or past ``n_valid`` are the engine's fixed-shape tail
+  pads and are skipped; tile rows the batch does not visit are left as they
+  are; a binary store ships no value plane (a lane is live iff its index is
+  below the chunk's nnz).  Index planes arrive as stored: uint16 (as int16
+  bits), int32 (host-decoded), or an optimized store's uint8 flattened-key
+  deltas, decoded from the bases in ``meta`` columns 4/5.
+* :func:`spmm_tiles` is the one-shot ``A @ X`` over a whole ChunkedTiles:
+  the same kernel on a zeroed accumulator with ``n_valid = n_chunks``.
+
+A wrapper launches the kernel for tensors on the card and runs the plain
+version only for tensors on the CPU; it raises on anything the kernel does
+not take.  ``LAUNCHES`` counts kernel launches per wrapper (plain runs do
+not count), so a run can show that its path went through the kernel.
+
+Equality with the JAX package: on integer-valued data whose partial sums
+stay below 2**24 every f32 sum is exact in any order, so kernel, plain
+version and reference agree bit for bit.  Otherwise the kernel's atomics
+add in an order that changes from run to run, and agreement is to a
+tolerance (``rtol = atol = 1e-5`` at the shapes the tests use).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels._build import sem_spmm_lib
+
+# Kernel launches per wrapper since the last reset (see reset_launches).
+LAUNCHES = {"spmm_tiles_acc": 0, "spmm_tiles": 0}
+
+# Element width of each accepted index-plane dtype; uint16 planes travel
+# as int16 bits (PyTorch has few uint16 ops) or as torch.uint16.
+_IDX_BYTES = {torch.uint8: 1, torch.int16: 2, torch.uint16: 2, torch.int32: 4}
+# (row width, col width) pairs the kernel takes: raw uint16, decoded int32,
+# 16-bit and 24-bit flattened deltas.
+_PLANE_PAIRS = {(2, 2), (4, 4), (1, 1), (2, 1)}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_variant(variant: str) -> None:
+    if variant == "mxu":
+        raise NotImplementedError(
+            "the densify kernel variant 'mxu' is not in slice 1 of the "
+            "port: see ROADMAP.md (queue 2, K1b)")
+    if variant != "gather":
+        raise ValueError(f"unknown kernel variant {variant!r}: "
+                         "expected 'gather'")
+
+
+def _upcast(plane: torch.Tensor) -> torch.Tensor:
+    """Index plane -> int64, reading 16-bit planes as unsigned."""
+    if plane.dtype == torch.uint16:
+        plane = plane.view(torch.int16)
+    if plane.dtype == torch.int16:
+        return plane.to(torch.int64) & 0xFFFF
+    return plane.to(torch.int64)
+
+
+def _decode_lanes(meta: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                  T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain decode of a batch's index lanes (the JAX engine's
+    ``core/sem.py::_decode_planes``): raw planes are upcast; a uint8 column
+    plane marks flattened-key deltas, ``k = meta[:,4]*T + meta[:,5] +
+    cumsum(rows << 8 | cols)``, with lanes at or past the chunk's nnz set
+    to 0.  Integer-exact, so raw and optimized stores decode alike."""
+    if cols.dtype == torch.uint8:
+        dk = (_upcast(rows) << 8) | cols.to(torch.int64)
+        m = meta.to(torch.int64)
+        k = m[:, 4:5] * T + m[:, 5:6] + torch.cumsum(dk, dim=1)
+        r = torch.div(k, T, rounding_mode="floor")
+        c = k - r * T
+        lanes = torch.arange(rows.shape[1], device=rows.device)[None, :]
+        valid = lanes < m[:, 3:4]
+        return r.where(valid, 0), c.where(valid, 0)
+    return _upcast(rows), _upcast(cols)
+
+
+def spmm_tiles_acc_plain(meta, n_valid, row_local, col_local, vals, x_pad,
+                         acc, *, T: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, same contract: decode, gather
+    the live lanes of the valid chunks, ``index_add_`` into ``acc``."""
+    nv = int(n_valid.reshape(-1)[0])
+    meta = meta[:nv]
+    r, c = _decode_lanes(meta, row_local[:nv], col_local[:nv], T)
+    m = meta.to(torch.int64)
+    lanes = torch.arange(r.shape[1], device=r.device)[None, :]
+    live = lanes < m[:, 3:4]
+    out_rows = (m[:, 0:1] * T + r)[live]
+    in_rows = (m[:, 1:2] * T + c)[live]
+    gathered = x_pad[in_rows]
+    if vals is not None:
+        gathered = vals[:nv][live][:, None] * gathered
+    return acc.index_add_(0, out_rows, gathered)
+
+
+def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
+           T: int) -> None:
+    """Raise on anything the kernel does not take."""
+    dev = acc.device
+    for name, t in (("meta", meta), ("n_valid", n_valid),
+                    ("row_local", row_local), ("col_local", col_local),
+                    ("vals", vals), ("x_pad", x_pad)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, acc on {dev}")
+    if meta.dtype != torch.int32 or meta.dim() != 2 \
+            or meta.shape[1] not in (4, 6):
+        raise ValueError("meta must be int32 (n_chunks, 4 or 6)")
+    if n_valid.dtype != torch.int32 or n_valid.numel() != 1:
+        raise ValueError("n_valid must be one int32")
+    pair = (_IDX_BYTES.get(row_local.dtype), _IDX_BYTES.get(col_local.dtype))
+    if pair not in _PLANE_PAIRS:
+        raise ValueError(f"unsupported index planes {row_local.dtype}, "
+                         f"{col_local.dtype}")
+    if pair[1] == 1 and meta.shape[1] < 6:
+        raise ValueError("delta planes need the 6-int meta (chunk bases)")
+    n, C = row_local.shape
+    if col_local.shape != (n, C) or meta.shape[0] != n:
+        raise ValueError("meta, row_local and col_local disagree on shape")
+    if vals is not None and (vals.dtype != torch.float32
+                             or vals.shape != (n, C)):
+        raise ValueError("vals must be float32 (n_chunks, C) or None")
+    if x_pad.dtype != torch.float32 or acc.dtype != torch.float32:
+        raise ValueError("x_pad and acc must be float32")
+    if x_pad.dim() != 2 or acc.dim() != 2 or x_pad.shape[1] != acc.shape[1]:
+        raise ValueError("x_pad and acc must be 2-D with the same width p")
+    if x_pad.shape[0] % T or acc.shape[0] % T:
+        raise ValueError(f"x_pad and acc rows must be multiples of T={T}")
+
+
+def _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc,
+            T: int) -> None:
+    """Launch the CUDA kernel on the current stream; raise if refused."""
+    planes = (meta, n_valid, row_local, col_local, vals, x_pad, acc)
+    if not all(t is None or t.is_contiguous() for t in planes):
+        raise ValueError("the kernel takes contiguous tensors only")
+    n, C = row_local.shape
+    lib = sem_spmm_lib()
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    with torch.cuda.device(acc.device):
+        err = lib.sem_spmm_batch(
+            meta.data_ptr(), meta.shape[1], n_valid.data_ptr(),
+            row_local.data_ptr(), _IDX_BYTES[row_local.dtype],
+            col_local.data_ptr(), _IDX_BYTES[col_local.dtype],
+            None if vals is None else vals.data_ptr(), x_pad.data_ptr(),
+            acc.data_ptr(), n, C, T, x_pad.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"sem_spmm_batch launch failed: CUDA error {err}")
+
+
+def _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T: int,
+           wrapper: str) -> torch.Tensor:
+    """Validate, then run the plain version on the CPU or launch the kernel
+    on the card (counted under ``wrapper``); anything else raises."""
+    _check(meta, n_valid, row_local, col_local, vals, x_pad, acc, T)
+    if acc.device.type == "cpu":
+        return spmm_tiles_acc_plain(meta, n_valid, row_local, col_local,
+                                    vals, x_pad, acc, T=T)
+    if acc.device.type != "cuda":
+        raise ValueError(f"no kernel for device {acc.device}")
+    _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc, T)
+    LAUNCHES[wrapper] += 1
+    return acc
+
+
+def spmm_tiles_acc(meta, n_valid, row_local, col_local,
+                   vals: Optional[torch.Tensor], x_pad, acc, *, T: int,
+                   variant: str = "gather") -> torch.Tensor:
+    """One SEM chunk batch: ``acc (n_tile_rows*T, p) += A_batch @ x_pad``,
+    in place; returns ``acc``.  ``meta`` is (n_chunks, 4 or 6) int32 (the
+    stored first-flags are ignored), ``n_valid`` one int32 (the rest are
+    tail pads), ``vals is None`` denotes a binary store."""
+    _check_variant(variant)
+    return _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
+                  "spmm_tiles_acc")
+
+
+def spmm_tiles(meta, row_local, col_local, vals: Optional[torch.Tensor],
+               x_pad, *, T: int, n_tile_rows: int,
+               variant: str = "gather") -> torch.Tensor:
+    """One-shot ``A @ X`` over a whole ChunkedTiles: returns
+    (n_tile_rows*T, p), every tile row summed from zero."""
+    _check_variant(variant)
+    acc = torch.zeros((n_tile_rows * T, x_pad.shape[1]), dtype=x_pad.dtype,
+                      device=x_pad.device)
+    n_valid = torch.tensor([meta.shape[0]], dtype=torch.int32,
+                           device=x_pad.device)
+    return _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
+                  "spmm_tiles")

@@ -15,3 +15,9 @@ def small_valued(small_graph):
     rng = np.random.default_rng(7)
     return small_graph.with_values(
         rng.standard_normal(small_graph.nnz).astype(np.float32))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason where none "
+        "is present")
