@@ -63,7 +63,7 @@ class COO:
 
     def dedup(self) -> "COO":
         """Remove duplicate (row, col) entries (keep first)."""
-        order = np.lexsort((self.cols, self.rows))
+        order = _row_major_order(self.rows, self.cols, self.n_cols)
         r, c = self.rows[order], self.cols[order]
         keep = np.ones(r.shape[0], dtype=bool)
         keep[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
@@ -199,6 +199,18 @@ class TiledSCSR:
 
 def tile_key(rows: np.ndarray, cols: np.ndarray, t: int, tiles_per_row: int):
     return (rows // t) * tiles_per_row + (cols // t)
+
+
+def _row_major_order(rows: np.ndarray, cols: np.ndarray,
+                     n_cols: int) -> np.ndarray:
+    """The stable order of entries by (row, col): ``np.lexsort((cols,
+    rows))``, computed as one stable argsort of ``row * n_cols + col``
+    (several times faster on large graphs) while that key fits int64."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    if rows.size and (int(rows.max()) + 1) * max(n_cols, 1) >= 2 ** 62:
+        return np.lexsort((cols, rows))
+    return np.argsort(rows * n_cols + cols, kind="stable")
 
 
 def from_coo_tiled(m: COO, t: int = 16384) -> TiledSCSR:
@@ -400,7 +412,10 @@ def to_chunked(m: COO, T: int = 16384, C: int = 2048,
     tiles_per_row = -(-m.n_cols // T)
     n_tile_rows = -(-m.n_rows // T)
     key = tile_key(m.rows, m.cols, T, tiles_per_row)
-    order = np.lexsort((m.cols, m.rows, key))
+    # entries by (tile, row, col): tile-major order is row-major order in
+    # the (tile, local row) x (local col) grid
+    order = _row_major_order(key.astype(np.int64) * T + m.rows % T,
+                             m.cols % T, T)
     key = key[order]
     r = (m.rows[order] % T).astype(np.int32)
     c = (m.cols[order] % T).astype(np.int32)

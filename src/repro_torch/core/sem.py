@@ -367,11 +367,12 @@ class SEMSpMM:
 
     def _multiply(self, x, acc: Optional[torch.Tensor] = None,
                   boundary_hook=None, cache=_CACHE_UNSET,
-                  semiring: str = "plus_times"
-                  ) -> Tuple[np.ndarray, torch.Tensor]:
+                  semiring: str = "plus_times", to_host: bool = True
+                  ) -> Tuple[Optional[np.ndarray], torch.Tensor]:
         """multiply() plus accumulator reuse: a caller looping over slices of
         equal width passes back the returned ``acc``, re-zeroed in place
-        here."""
+        here.  ``to_host=False`` skips the read-back (the host result is
+        then ``None``) for a caller that keeps working on the device."""
         ring = (semiring if isinstance(semiring, Semiring)
                 else SEMIRINGS[semiring])
         if not ring.is_plus_times():
@@ -386,6 +387,8 @@ class SEMSpMM:
         else:
             acc.zero_()
         out = self._stream_pass(x_pad, acc, hook=boundary_hook, cache=cache)
+        if not to_host:
+            return None, out
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # only here, at pass end
         result = out.reshape(-1, p)[: self.n_rows].to("cpu", copy=True)

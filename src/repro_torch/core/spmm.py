@@ -7,9 +7,12 @@ All compute ``out = A @ X`` for sparse ``A`` and dense ``X`` (n x p):
 * :func:`spmm_chunked` — plain PyTorch over the chunk layout the kernel
   streams, in every semiring; the kernel's oracle at scale.
 * ``spmm(..., use_kernel=True)`` — the CUDA kernel behind the same chunk
-  layout (plus-times only): :func:`repro_torch.kernels.ops.spmm_kernel`.
+  layout (plus-times only), in the gather or densify variant:
+  :func:`repro_torch.kernels.ops.spmm_kernel`.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,8 +62,11 @@ def spmm_chunked(ct: ChunkedTiles, x: torch.Tensor,
 
 
 def spmm(a, x, semiring: str = "plus_times", use_kernel: bool = False,
-         device: DeviceLike = None) -> torch.Tensor:
-    """Dispatch on input format; returns float32 on ``device``."""
+         device: DeviceLike = None,
+         variant: Optional[str] = None) -> torch.Tensor:
+    """Dispatch on input format; returns float32 on ``device``.  With
+    ``use_kernel``, ``variant`` ("gather" or "mxu") picks the kernel;
+    ``None`` lets :func:`repro_torch.kernels.ops.pick_variant` choose."""
     device = resolve_device(device)
     x = torch.as_tensor(x, device=device).to(torch.float32)
     if isinstance(a, COO):
@@ -71,6 +77,6 @@ def spmm(a, x, semiring: str = "plus_times", use_kernel: bool = False,
                 raise NotImplementedError(
                     f"semiring {semiring!r} through the kernel: slice 2, "
                     "see ROADMAP.md")
-            return spmm_kernel(a, x, device=device)
+            return spmm_kernel(a, x, variant=variant, device=device)
         return spmm_chunked(a, x, semiring)
     raise TypeError(f"unsupported sparse format {type(a)}")

@@ -3,11 +3,14 @@
 Each ``csrc/*.cu`` file has a plain C interface and no PyTorch headers, so
 ``nvcc`` builds it into a shared library in seconds; the library is loaded
 with :mod:`ctypes`.  Libraries go to ``build/torch_ext/`` at the root of the
-checkout, named by a hash of the source and the flags: a changed source
-builds anew, an unchanged one is loaded as it is.  A failed build raises.
+checkout, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags: a changed source builds anew, an unchanged one is loaded as
+it is.  A failed build raises.  :func:`build_all` starts one ``nvcc`` per
+source, all at once.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -16,6 +19,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -43,7 +47,8 @@ def build(name: str) -> BuildInfo:
     """Compile ``csrc/<name>.cu`` for sm_90a unless an up-to-date library
     exists.  Returns where it is and what the compiler reported."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
@@ -65,13 +70,34 @@ def build(name: str) -> BuildInfo:
     return BuildInfo(name, lib, seconds, report)
 
 
+SOURCES = ("sem_spmm", "sem_spmm_mxu")
+
+
+def build_all() -> Dict[str, BuildInfo]:
+    """Build every kernel source, one ``nvcc`` each, all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
+
+
+def _load(name: str, entry: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``, built at first use, with the C signature of its
+    entry point declared (both entry points take the same arguments)."""
+    lib = ctypes.CDLL(str(build(name).path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = [p, i, p, p, i, p, i, p, p, p, i, i, i, i, p]
+    fn.restype = i
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def sem_spmm_lib() -> ctypes.CDLL:
-    """``sem_spmm.cu``, built at first use, with its entry point's C
-    signature declared."""
-    lib = ctypes.CDLL(str(build("sem_spmm").path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sem_spmm_batch.argtypes = [p, i, p, p, i, p, i, p, p, p,
-                                   i, i, i, i, p]
-    lib.sem_spmm_batch.restype = i
-    return lib
+    """The gather kernel, ``sem_spmm.cu`` (entry ``sem_spmm_batch``)."""
+    return _load("sem_spmm", "sem_spmm_batch")
+
+
+@functools.lru_cache(maxsize=None)
+def sem_spmm_mxu_lib() -> ctypes.CDLL:
+    """The densify kernel, ``sem_spmm_mxu.cu`` (entry
+    ``sem_spmm_mxu_batch``)."""
+    return _load("sem_spmm_mxu", "sem_spmm_mxu_batch")

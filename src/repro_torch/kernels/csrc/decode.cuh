@@ -1,0 +1,54 @@
+// Lane decode shared by the chunk-batch kernels (sem_spmm.cu, the gather
+// kernel, and sem_spmm_mxu.cu, the densify kernel), so both read a chunk's
+// index lanes integer for integer alike.
+//
+// Mirrors the JAX package's repro/kernels/sem_spmm.py::_decode_lanes:
+//   * uint16 / int32 planes are upcast, for the live lanes i < nnz;
+//   * uint8 column planes mark an optimized store's flattened-key deltas:
+//     k = meta[g,4]*T + meta[g,5] + inclusive_cumsum(rows << 8 | cols),
+//     r = k / T, c = k - r*T, for every lane i < C, lanes >= nnz set to 0.
+//     The cumsum is a block scan: each thread sums a contiguous run of
+//     lanes, a shared-memory scan of the run sums gives every run its
+//     starting key, and the thread walks its run again.  Keys are 64-bit;
+//     the reference's int32 keys agree while meta[g,4]*T + T*T < 2**31.
+
+#pragma once
+
+#include <cstdint>
+
+template <int kThreads, typename RowT, typename ColT>
+__device__ __forceinline__ void decode_lanes(const int32_t* m, const RowT* rg,
+                                             const ColT* cg, int C, int T,
+                                             int nnz, int* r_s, int* c_s) {
+  if constexpr (sizeof(ColT) == 1) {
+    __shared__ long long run_sum[kThreads];
+    const int per = (C + kThreads - 1) / kThreads;
+    const int lo = min(static_cast<int>(threadIdx.x) * per, C);
+    const int hi = min(lo + per, C);
+    long long s = 0;
+    for (int i = lo; i < hi; ++i)
+      s += (static_cast<long long>(rg[i]) << 8) | static_cast<long long>(cg[i]);
+    run_sum[threadIdx.x] = s;
+    __syncthreads();
+    for (int off = 1; off < kThreads; off <<= 1) {
+      const long long add = threadIdx.x >= off ? run_sum[threadIdx.x - off] : 0;
+      __syncthreads();
+      run_sum[threadIdx.x] += add;
+      __syncthreads();
+    }
+    long long k = static_cast<long long>(m[4]) * T + m[5]
+                  + (threadIdx.x ? run_sum[threadIdx.x - 1] : 0);
+    for (int i = lo; i < hi; ++i) {
+      k += (static_cast<long long>(rg[i]) << 8) | static_cast<long long>(cg[i]);
+      const long long r = k / T;
+      const bool live = i < nnz;
+      r_s[i] = live ? static_cast<int>(r) : 0;
+      c_s[i] = live ? static_cast<int>(k - r * T) : 0;
+    }
+  } else {
+    for (int i = threadIdx.x; i < nnz; i += kThreads) {
+      r_s[i] = static_cast<int>(rg[i]);
+      c_s[i] = static_cast<int>(cg[i]);
+    }
+  }
+}

@@ -10,11 +10,10 @@
 //   * g >= n_valid[0]: the block returns at once (fixed-shape tail pads).
 //     n_valid, not the chunk's nnz, is the gate: an empty tile row's real
 //     chunk has nnz 0 and still runs (it just adds nothing here).
-//   * decode the C index lanes: uint16 / int32 planes are upcast; uint8
-//     delta planes (an optimized store) rebuild the flattened key
-//     k = meta[g,4]*T + meta[g,5] + inclusive_cumsum(rows << 8 | cols)
-//     with a block scan, then r = k / T, c = k - r*T, lanes >= meta[g,3]
-//     set to 0 -- integer for integer what the reference decodes.
+//   * decode the C index lanes (decode.cuh, shared with the densify
+//     kernel): uint16 / int32 planes are upcast; uint8 delta planes (an
+//     optimized store) rebuild the flattened key with a block scan --
+//     integer for integer what the reference decodes.
 //   * for every live lane (lane < meta[g,3]) and column j < p:
 //       acc[(meta[g,0]*T + r)*p + j] += v * x_pad[(meta[g,1]*T + c)*p + j]
 //     with v the stored value, or 1 for a binary store (no value plane).
@@ -46,6 +45,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decode.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -69,43 +70,9 @@ chunk_gather_kernel(const int32_t* __restrict__ meta, int meta_ints,
   extern __shared__ int lane_idx[];
   int* r_s = lane_idx;       // C decoded row indices
   int* c_s = lane_idx + C;   // C decoded column indices
-  const RowT* rg = rows + static_cast<size_t>(g) * C;
-  const ColT* cg = cols + static_cast<size_t>(g) * C;
-
-  if constexpr (sizeof(ColT) == 1) {
-    // Flattened-key deltas.  Each thread owns a contiguous run of lanes:
-    // it sums its run, a block-wide inclusive scan of the run sums gives
-    // every run its starting key, and the thread walks its run again.
-    __shared__ long long run_sum[kThreads];
-    const int per = (C + kThreads - 1) / kThreads;
-    const int lo = min(static_cast<int>(threadIdx.x) * per, C);
-    const int hi = min(lo + per, C);
-    long long s = 0;
-    for (int i = lo; i < hi; ++i)
-      s += (static_cast<long long>(rg[i]) << 8) | static_cast<long long>(cg[i]);
-    run_sum[threadIdx.x] = s;
-    __syncthreads();
-    for (int off = 1; off < kThreads; off <<= 1) {
-      const long long add = threadIdx.x >= off ? run_sum[threadIdx.x - off] : 0;
-      __syncthreads();
-      run_sum[threadIdx.x] += add;
-      __syncthreads();
-    }
-    long long k = static_cast<long long>(m[4]) * T + m[5]
-                  + (threadIdx.x ? run_sum[threadIdx.x - 1] : 0);
-    for (int i = lo; i < hi; ++i) {
-      k += (static_cast<long long>(rg[i]) << 8) | static_cast<long long>(cg[i]);
-      const long long r = k / T;
-      const bool live = i < nnz;
-      r_s[i] = live ? static_cast<int>(r) : 0;
-      c_s[i] = live ? static_cast<int>(k - r * T) : 0;
-    }
-  } else {
-    for (int i = threadIdx.x; i < nnz; i += kThreads) {
-      r_s[i] = static_cast<int>(rg[i]);
-      c_s[i] = static_cast<int>(cg[i]);
-    }
-  }
+  decode_lanes<kThreads>(m, rows + static_cast<size_t>(g) * C,
+                         cols + static_cast<size_t>(g) * C, C, T, nnz, r_s,
+                         c_s);
   __syncthreads();
 
   const float* xb = x_pad + static_cast<size_t>(tile_col) * T * p;

@@ -10,15 +10,22 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sem_spmm import spmm_tiles, spmm_tiles_acc
 
 
-def pick_variant(T: int) -> str:
-    """Per-matrix execution-path dispatch (the SCSR/COO hybrid analogue).
+# Largest tile size at which the densify kernel (K1b) beats the gather
+# kernel (K1a) on the H100; 0: it never does.  The crossover table in
+# PERF.md (section 6, measured by chip_smoke.py phase 4c on an H100 80GB
+# HBM3 at 700 W): on 256-chunk batches at T = 256 ... 4096 and p = 1, 8,
+# 16 the gather kernel won every cell, by 2.7x (T = 256, p = 1) to 27x
+# (T = 4096, p = 16).
+MXU_MAX_T = 0
 
-    The JAX package sends ``T <= 2048`` to its densify variant from napkin
-    math about a TPU's matrix unit; that threshold does not carry over.
-    Only the gather kernel exists on the card so far, so every ``T`` takes
-    it; the H100's gather-vs-densify crossover is measured once the densify
-    kernel is ported (see ROADMAP.md)."""
-    return "gather"
+
+def pick_variant(T: int) -> str:
+    """Per-matrix execution-path dispatch (the SCSR/COO hybrid analogue):
+    the densify kernel for tiles up to ``MXU_MAX_T``, the gather kernel
+    above.  The JAX package sends ``T <= 2048`` to its densify variant from
+    napkin math about a TPU's matrix unit; on the H100 the threshold comes
+    from a measurement of both kernels on the same batches."""
+    return "mxu" if T <= MXU_MAX_T else "gather"
 
 
 def to_device(a, device: torch.device, dtype=None):

@@ -1,6 +1,6 @@
-"""The tiled SpMM kernel of the semi-external pass (the paper's compute
-hot-spot): wrappers around the CUDA kernel in ``csrc/sem_spmm.cu``, each
-with its plain PyTorch version beside it.
+"""The tiled SpMM kernels of the semi-external pass (the paper's compute
+hot-spot): wrappers around the CUDA kernels in ``csrc/``, each with its
+plain PyTorch version beside it.
 
 * :func:`spmm_tiles_acc` applies ONE chunk batch of a streaming pass to a
   running accumulator, in place: ``acc (n_tile_rows*T, p) += A_batch @
@@ -13,16 +13,28 @@ with its plain PyTorch version beside it.
 * :func:`spmm_tiles` is the one-shot ``A @ X`` over a whole ChunkedTiles:
   the same kernel on a zeroed accumulator with ``n_valid = n_chunks``.
 
+Each takes one of two variants, as the JAX package's kernels do:
+
+* ``"gather"`` (``csrc/sem_spmm.cu``): each live lane's X row is gathered,
+  scaled and added into its output row; O(nnz * p) work.
+* ``"mxu"`` (``csrc/sem_spmm_mxu.cu``): each chunk is densified into two
+  one-hot products on the tensor cores, ``E_rᵀ · (v ⊙ (E_c · X_blk))``,
+  added over its whole tile row; O(live lanes * T * p) work.  It takes
+  ``C <= MXU_MAX_C`` (its shared-memory footprint).
+
 A wrapper launches the kernel for tensors on the card and runs the plain
 version only for tensors on the CPU; it raises on anything the kernel does
-not take.  ``LAUNCHES`` counts kernel launches per wrapper (plain runs do
-not count), so a run can show that its path went through the kernel.
+not take.  ``LAUNCHES`` counts kernel launches per wrapper and variant
+(plain runs do not count), so a run can show that its path went through
+the kernel.
 
 Equality with the JAX package: on integer-valued data whose partial sums
 stay below 2**24 every f32 sum is exact in any order, so kernel, plain
-version and reference agree bit for bit.  Otherwise the kernel's atomics
-add in an order that changes from run to run, and agreement is to a
-tolerance (``rtol = atol = 1e-5`` at the shapes the tests use).
+version and reference agree bit for bit (the densify kernel splits its
+tensor-core operands in two TF32 terms, exact for integers below 2**22).
+Otherwise the kernels' atomics add in an order that changes from run to
+run, and agreement is to a tolerance (``rtol = atol = 1e-5`` at the shapes
+the tests use).
 """
 from __future__ import annotations
 
@@ -30,10 +42,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import sem_spmm_lib
+from repro_torch.kernels._build import sem_spmm_lib, sem_spmm_mxu_lib
 
-# Kernel launches per wrapper since the last reset (see reset_launches).
-LAUNCHES = {"spmm_tiles_acc": 0, "spmm_tiles": 0}
+# Kernel launches per wrapper and variant since the last reset (see
+# reset_launches); the gather variant keeps the wrapper's plain name.
+LAUNCHES = {"spmm_tiles_acc": 0, "spmm_tiles": 0, "spmm_tiles_acc_mxu": 0,
+            "spmm_tiles_mxu": 0}
+VARIANTS = ("gather", "mxu")
+# Largest chunk capacity the densify kernel takes: its decoded lanes (12
+# bytes a lane) beside one X slab and one intermediate slab must fit a
+# block's 227 KB of shared memory (csrc/sem_spmm_mxu.cu).
+MXU_MAX_C = 13056
+# Bytes of the two one-hot matrices the plain densify version holds at
+# once; a longer batch goes through in groups of chunks.
+MXU_PLAIN_BYTES = 1 << 27
 
 # Element width of each accepted index-plane dtype; uint16 planes travel
 # as int16 bits (PyTorch has few uint16 ops) or as torch.uint16.
@@ -49,13 +71,9 @@ def reset_launches() -> None:
 
 
 def _check_variant(variant: str) -> None:
-    if variant == "mxu":
-        raise NotImplementedError(
-            "the densify kernel variant 'mxu' is not in slice 1 of the "
-            "port: see ROADMAP.md (queue 2, K1b)")
-    if variant != "gather":
+    if variant not in VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}: "
-                         "expected 'gather'")
+                         "expected 'gather' or 'mxu'")
 
 
 def _upcast(plane: torch.Tensor) -> torch.Tensor:
@@ -104,8 +122,43 @@ def spmm_tiles_acc_plain(meta, n_valid, row_local, col_local, vals, x_pad,
     return acc.index_add_(0, out_rows, gathered)
 
 
+def spmm_tiles_acc_mxu_plain(meta, n_valid, row_local, col_local, vals,
+                             x_pad, acc, *, T: int) -> torch.Tensor:
+    """Plain PyTorch version of the densify kernel, same contract: for each
+    valid chunk the two one-hot products literally, ``blk = E_rᵀ · (v ⊙
+    (E_c · X[tile_col]))``, then ``acc[tile_row] += blk`` over the whole
+    tile row.  Lanes at or past a chunk's nnz are zero rows of both one-hot
+    matrices.  Chunks go through in groups of at most ``MXU_PLAIN_BYTES``
+    of one-hot matrices."""
+    nv = int(n_valid.reshape(-1)[0])
+    meta = meta[:nv]
+    r, c = _decode_lanes(meta, row_local[:nv], col_local[:nv], T)
+    m = meta.to(torch.int64)
+    C, p = r.shape[1], x_pad.shape[1]
+    live = torch.arange(C, device=r.device)[None, :] < m[:, 3:4]
+    hot = live.to(x_pad.dtype)
+    v = hot if vals is None else torch.where(live, vals[:nv], 0.0)
+    r, c = r.where(live, 0), c.where(live, 0)
+    xb, ab = x_pad.reshape(-1, T, p), acc.view(-1, T, p)
+    step = max(1, MXU_PLAIN_BYTES // (2 * C * T * x_pad.element_size()))
+    for s in range(0, nv, step):
+        e = min(s + step, nv)
+        one_hot = torch.zeros((2, e - s, C, T), dtype=x_pad.dtype,
+                              device=x_pad.device)
+        one_hot[0].scatter_(2, c[s:e, :, None], hot[s:e, :, None])
+        one_hot[1].scatter_(2, r[s:e, :, None], hot[s:e, :, None])
+        gathered = torch.bmm(one_hot[0], xb[m[s:e, 1]])
+        blk = torch.bmm(one_hot[1].transpose(1, 2),
+                        v[s:e, :, None] * gathered)
+        ab.index_add_(0, m[s:e, 0], blk)
+    return acc
+
+
+_PLAIN = {"gather": spmm_tiles_acc_plain, "mxu": spmm_tiles_acc_mxu_plain}
+
+
 def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
-           T: int) -> None:
+           T: int, variant: str) -> None:
     """Raise on anything the kernel does not take."""
     dev = acc.device
     for name, t in (("meta", meta), ("n_valid", n_valid),
@@ -136,40 +189,48 @@ def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
         raise ValueError("x_pad and acc must be 2-D with the same width p")
     if x_pad.shape[0] % T or acc.shape[0] % T:
         raise ValueError(f"x_pad and acc rows must be multiples of T={T}")
+    if variant == "mxu" and C > MXU_MAX_C:
+        raise ValueError(f"the densify kernel takes C <= {MXU_MAX_C}, "
+                         f"not {C}")
 
 
 def _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc,
-            T: int) -> None:
-    """Launch the CUDA kernel on the current stream; raise if refused."""
+            T: int, variant: str) -> None:
+    """Launch the variant's CUDA kernel on the current stream; raise if
+    refused."""
     planes = (meta, n_valid, row_local, col_local, vals, x_pad, acc)
     if not all(t is None or t.is_contiguous() for t in planes):
         raise ValueError("the kernel takes contiguous tensors only")
     n, C = row_local.shape
-    lib = sem_spmm_lib()
+    entry = (sem_spmm_lib().sem_spmm_batch if variant == "gather"
+             else sem_spmm_mxu_lib().sem_spmm_mxu_batch)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     with torch.cuda.device(acc.device):
-        err = lib.sem_spmm_batch(
+        err = entry(
             meta.data_ptr(), meta.shape[1], n_valid.data_ptr(),
             row_local.data_ptr(), _IDX_BYTES[row_local.dtype],
             col_local.data_ptr(), _IDX_BYTES[col_local.dtype],
             None if vals is None else vals.data_ptr(), x_pad.data_ptr(),
             acc.data_ptr(), n, C, T, x_pad.shape[1], stream)
     if err != 0:
-        raise RuntimeError(f"sem_spmm_batch launch failed: CUDA error {err}")
+        raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
 
 
 def _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T: int,
-           wrapper: str) -> torch.Tensor:
-    """Validate, then run the plain version on the CPU or launch the kernel
-    on the card (counted under ``wrapper``); anything else raises."""
-    _check(meta, n_valid, row_local, col_local, vals, x_pad, acc, T)
+           variant: str, wrapper: str) -> torch.Tensor:
+    """Validate, then run the variant's plain version on the CPU or launch
+    its kernel on the card (counted under ``wrapper`` and the variant);
+    anything else raises."""
+    _check_variant(variant)
+    _check(meta, n_valid, row_local, col_local, vals, x_pad, acc, T, variant)
     if acc.device.type == "cpu":
-        return spmm_tiles_acc_plain(meta, n_valid, row_local, col_local,
-                                    vals, x_pad, acc, T=T)
+        return _PLAIN[variant](meta, n_valid, row_local, col_local, vals,
+                               x_pad, acc, T=T)
     if acc.device.type != "cuda":
         raise ValueError(f"no kernel for device {acc.device}")
-    _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc, T)
-    LAUNCHES[wrapper] += 1
+    _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
+            variant)
+    LAUNCHES[wrapper if variant == "gather" else f"{wrapper}_mxu"] += 1
     return acc
 
 
@@ -180,9 +241,8 @@ def spmm_tiles_acc(meta, n_valid, row_local, col_local,
     in place; returns ``acc``.  ``meta`` is (n_chunks, 4 or 6) int32 (the
     stored first-flags are ignored), ``n_valid`` one int32 (the rest are
     tail pads), ``vals is None`` denotes a binary store."""
-    _check_variant(variant)
     return _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
-                  "spmm_tiles_acc")
+                  variant, "spmm_tiles_acc")
 
 
 def spmm_tiles(meta, row_local, col_local, vals: Optional[torch.Tensor],
@@ -190,10 +250,9 @@ def spmm_tiles(meta, row_local, col_local, vals: Optional[torch.Tensor],
                variant: str = "gather") -> torch.Tensor:
     """One-shot ``A @ X`` over a whole ChunkedTiles: returns
     (n_tile_rows*T, p), every tile row summed from zero."""
-    _check_variant(variant)
     acc = torch.zeros((n_tile_rows * T, x_pad.shape[1]), dtype=x_pad.dtype,
                       device=x_pad.device)
     n_valid = torch.tensor([meta.shape[0]], dtype=torch.int32,
                            device=x_pad.device)
     return _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
-                  "spmm_tiles")
+                  variant, "spmm_tiles")

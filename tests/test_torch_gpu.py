@@ -1,11 +1,17 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+gather kernel (K1a, and K2 through it) and the densify kernel (K1b, and
+K2-mxu through it).
 
 Small shapes; every test needs a card and skips without one (decided in the
 ``cuda`` fixture, never at import).  Run on a machine with a card:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Integer-valued data is compared bit for bit (f32 sums of integers below
-2**24 are exact in any order); normal data to ``rtol = atol = 1e-5``, since
-the kernel's atomics add in an order that changes from run to run.
+2**24 are exact in any order, and the densify kernel's two-term TF32 split
+is exact for integers below 2**22).  Normal data is compared elementwise to
+1e-5 of |A|·|x|, the sum of the terms' magnitudes: kernel and plain version
+add float32 terms in orders that change from run to run (atomics on both
+sides), so they differ by rounding of the order of the terms, which for a
+row whose terms cancel is far larger than the result (see ``_terms``).
 """
 import numpy as np
 import pytest
@@ -33,21 +39,26 @@ def cuda():
 def stores(tmp_path_factory):
     """Raw valued (integer values), raw binary, and optimized copies of
     both: T=256 packs 16-bit deltas, T=4096 without reordering leaves
-    24-bit ones."""
+    24-bit ones.  For the densify kernel also raw stores with C=1024 (more
+    lanes than one of its shared-memory slabs holds) and with T=200 (no
+    multiple of its 16-row fragments)."""
     g = rmat(12, 8, seed=1)
     rng = np.random.default_rng(7)
     gv = g.with_values(rng.integers(-3, 4, g.nnz).astype(np.float32))
     d = tmp_path_factory.mktemp("gpu")
     out = {}
-    for T, C in ((256, 64), (4096, 256)):
-        out[f"val{T}"] = TileStore.write(str(d / f"v{T}"),
-                                         to_chunked(gv, T=T, C=C))
-        out[f"bin{T}"] = TileStore.write(str(d / f"b{T}"),
-                                         to_chunked(g, T=T, C=C), binary=True)
-        out[f"valopt{T}"] = out[f"val{T}"].optimize(
-            str(d / f"vo{T}"), reorder=T == 256)
-        out[f"binopt{T}"] = out[f"bin{T}"].optimize(
-            str(d / f"bo{T}"), reorder=T == 256)
+    for T, C, tag in ((256, 64, "256"), (4096, 256, "4096"),
+                      (4096, 1024, "4096c1024"), (200, 48, "200")):
+        out[f"val{tag}"] = TileStore.write(str(d / f"v{tag}"),
+                                           to_chunked(gv, T=T, C=C))
+        out[f"bin{tag}"] = TileStore.write(str(d / f"b{tag}"),
+                                           to_chunked(g, T=T, C=C),
+                                           binary=True)
+        if tag in ("256", "4096"):
+            out[f"valopt{tag}"] = out[f"val{tag}"].optimize(
+                str(d / f"vo{tag}"), reorder=T == 256)
+            out[f"binopt{tag}"] = out[f"bin{tag}"].optimize(
+                str(d / f"bo{tag}"), reorder=T == 256)
     return out
 
 
@@ -65,7 +76,8 @@ def _planes(batch, device):
     return out
 
 
-def _run_both(st, s, n, x, cuda, acc0=None, n_valid=None, decoded=False):
+def _run_both(st, s, n, x, cuda, acc0=None, n_valid=None, decoded=False,
+              variant="gather"):
     """One batch through the kernel and through the plain version (on the
     card, same inputs); returns (kernel acc, plain acc, launches)."""
     T = st.header["T"]
@@ -80,13 +92,30 @@ def _run_both(st, s, n, x, cuda, acc0=None, n_valid=None, decoded=False):
     acc = (torch.zeros((n_rows, x.shape[1]), device=cuda) if acc0 is None
            else acc0.clone())
     plain = acc.clone()
-    before = sem_spmm.LAUNCHES["spmm_tiles_acc"]
-    sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, acc, T=T)
-    launches = sem_spmm.LAUNCHES["spmm_tiles_acc"] - before
-    sem_spmm.spmm_tiles_acc_plain(meta, nv, rows, cols, vals, x_pad, plain,
-                                  T=T)
+    key = "spmm_tiles_acc" + ("" if variant == "gather" else "_mxu")
+    before = sem_spmm.LAUNCHES[key]
+    sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, acc, T=T,
+                            variant=variant)
+    launches = sem_spmm.LAUNCHES[key] - before
+    sem_spmm._PLAIN[variant](meta, nv, rows, cols, vals, x_pad, plain, T=T)
     torch.cuda.synchronize()
     return acc.cpu().numpy(), plain.cpu().numpy(), launches
+
+
+def _terms(st, s, n, x, variant="gather"):
+    """|A|·|x| for one batch, on the host: the plain version on the planes'
+    and the operand's magnitudes.  A reordered float32 sum of n terms is
+    typically off by sqrt(n)·2**-24 of it, so 1e-5 of it leaves room; a
+    dropped or doubled term is off by far more."""
+    T = st.header["T"]
+    meta, rows, cols, vals = _planes(st.read_batch_raw(s, n), "cpu")
+    x_pad = torch.zeros((-(-st.header["n_cols"] // T) * T, x.shape[1]))
+    x_pad[: x.shape[0]] = torch.from_numpy(np.abs(x))
+    out = torch.zeros((-(-st.header["n_rows"] // T) * T, x.shape[1]))
+    sem_spmm._PLAIN[variant](meta, torch.tensor([n], dtype=torch.int32),
+                             rows, cols, None if vals is None else vals.abs(),
+                             x_pad, out, T=T)
+    return out.numpy()
 
 
 @pytest.mark.parametrize("name", ["val256", "bin256", "valopt256",
@@ -110,7 +139,7 @@ def test_kernel_matches_plain_float(cuda, stores):
     x = np.random.default_rng(2).standard_normal(
         (st.header["n_cols"], 8)).astype(np.float32)
     got, want, _ = _run_both(st, 0, st.n_chunks, x, cuda)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (np.abs(got - want) <= 1e-5 * _terms(st, 0, st.n_chunks, x)).all()
 
 
 def test_kernel_skips_pads_and_keeps_untouched_rows(cuda, stores):
@@ -185,10 +214,12 @@ def test_boundary_hook_on_card(cuda, stores):
 
 
 def test_build_reports_registers(cuda):
-    from repro_torch.kernels._build import build
-    info = build("sem_spmm")
-    assert info.path.exists()
-    assert "registers" in info.ptxas
+    """Both sources build, one nvcc each, started together."""
+    from repro_torch.kernels._build import build_all
+    infos = build_all()
+    assert set(infos) == {"sem_spmm", "sem_spmm_mxu"}
+    for info in infos.values():
+        assert info.path.exists() and "registers" in info.ptxas
 
 
 def test_kernel_is_graph_capturable(cuda, stores):
@@ -210,3 +241,109 @@ def test_kernel_is_graph_capturable(cuda, stores):
     torch.cuda.synchronize()
     assert torch.equal(acc, 2 * once)
 
+
+
+# -- the densify kernel (K1b, and K2-mxu through it) ------------------------
+@pytest.mark.parametrize("name", ["val256", "bin256", "valopt256",
+                                  "binopt256", "valopt4096", "binopt4096",
+                                  "val4096c1024", "bin200"])
+@pytest.mark.parametrize("decoded", [False, True])
+@pytest.mark.parametrize("p", [1, 5, 16, 20])
+def test_mxu_kernel_matches_plain_integer(cuda, stores, name, decoded, p):
+    """Every plane type and store shape, p below, at and above one 16-column
+    pass, bit for bit on integer data, one launch per call."""
+    st = stores[name]
+    x = np.random.default_rng(p).integers(
+        -4, 5, (st.header["n_cols"], p)).astype(np.float32)
+    for s, n in st.batch_plan(37):
+        got, want, launches = _run_both(st, s, n, x, cuda, decoded=decoded,
+                                        variant="mxu")
+        np.testing.assert_array_equal(got, want)
+        assert launches == 1
+
+
+def test_mxu_kernel_matches_plain_float(cuda, stores):
+    st = stores["val256"]
+    x = np.random.default_rng(2).standard_normal(
+        (st.header["n_cols"], 8)).astype(np.float32)
+    got, want, _ = _run_both(st, 0, st.n_chunks, x, cuda, variant="mxu")
+    assert (np.abs(got - want)
+            <= 1e-5 * _terms(st, 0, st.n_chunks, x, "mxu")).all()
+
+
+def test_mxu_kernel_skips_pads_and_keeps_untouched_rows(cuda, stores):
+    """Chunks at or past n_valid contribute nothing; tile rows the batch
+    does not visit keep their content bit for bit; a visited tile row's
+    rows without entries take + 0.0 (a -0.0 there turns +0.0, as in the
+    reference and the plain version)."""
+    st = stores["bin256"]
+    T = st.header["T"]
+    x = np.ones((st.header["n_cols"], 3), np.float32)
+    s, n = st.n_chunks // 3, st.n_chunks // 3
+    n_rows = -(-st.header["n_rows"] // T) * T
+    for fill in (12345.0, -0.0):
+        acc0 = torch.full((n_rows, 3), fill, device=cuda)
+        got, want, _ = _run_both(st, s, n, x, cuda, acc0=acc0,
+                                 n_valid=n - 5, variant="mxu")
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+        meta = st.read_batch_raw(s, n)[0]
+        touched = np.unique(meta[: n - 5, 0])
+        rows = got.reshape(-1, T, 3)
+        untouched = np.setdiff1d(np.arange(rows.shape[0]), touched)
+        assert untouched.size > 0
+        np.testing.assert_array_equal(
+            rows[untouched].view(np.uint32),
+            np.full_like(rows[untouched], fill).view(np.uint32))
+        assert not (rows[touched].view(np.uint32)
+                    == np.float32(fill).view(np.uint32)).all()
+
+
+def test_mxu_one_shot_kernel_matches_plain(cuda):
+    g = rmat(11, 8, seed=3)
+    ct = to_chunked(g, T=256, C=64)
+    x = np.random.default_rng(3).integers(
+        -4, 5, (g.n_cols, 4)).astype(np.float32)
+    before = sem_spmm.LAUNCHES["spmm_tiles_mxu"]
+    got = spmm_kernel(ct, x, variant="mxu", device=cuda).cpu().numpy()
+    assert sem_spmm.LAUNCHES["spmm_tiles_mxu"] - before == 1
+    want = spmm_kernel(ct, x, variant="mxu", device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, spmm_kernel(ct, x, device=cuda)
+                                  .cpu().numpy())
+
+
+@pytest.mark.parametrize("name", ["val256", "binopt256"])
+def test_mxu_engine_on_card_matches_cpu(cuda, stores, name):
+    path = stores[name].path
+    x = np.random.default_rng(4).integers(
+        -4, 5, (stores[name].header["n_cols"], 8)).astype(np.float32)
+    cfg = SEMConfig(chunk_batch=53, kernel_variant="mxu")
+    gpu = SEMSpMM(TileStore.open(path), cfg, device=cuda)
+    cpu = SEMSpMM(TileStore.open(path), cfg, device="cpu")
+    sem_spmm.reset_launches()
+    got = gpu.multiply(x)
+    assert sem_spmm.LAUNCHES["spmm_tiles_acc_mxu"] == gpu.n_batches
+    assert sem_spmm.LAUNCHES["spmm_tiles_acc"] == 0
+    np.testing.assert_array_equal(got, cpu.multiply(x))
+    for k in ("bytes_read", "h2d_bytes", "overlap_batches"):
+        assert getattr(gpu.io_stats, k) == getattr(cpu.io_stats, k), k
+
+
+def test_mxu_kernel_is_graph_capturable(cuda, stores):
+    st = stores["bin256"]
+    T = st.header["T"]
+    meta, rows, cols, vals = _planes(st.read_batch_raw(0, 40), cuda)
+    nv = torch.tensor([40], dtype=torch.int32, device=cuda)
+    x = torch.ones((-(-st.header["n_cols"] // T) * T, 16), device=cuda)
+    acc = torch.zeros((-(-st.header["n_rows"] // T) * T, 16), device=cuda)
+    once = sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x,
+                                   acc.clone(), T=T, variant="mxu")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x, acc, T=T,
+                                variant="mxu")
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(acc, 2 * once)

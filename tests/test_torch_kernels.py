@@ -245,13 +245,22 @@ def test_plain_runs_launch_nothing_and_wrappers_validate(stores):
     nv = torch.tensor([8], dtype=torch.int32)
     sem_spmm.reset_launches()
     sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, acc, T=T)
-    assert sem_spmm.LAUNCHES == {"spmm_tiles_acc": 0, "spmm_tiles": 0}
     with pytest.raises(ValueError, match="unknown kernel variant"):
         sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, acc, T=T,
                                 variant="vpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, acc, T=T,
-                                variant="mxu")
+    # the densify variant runs its plain version here, equal to the
+    # reference's mxu kernel (integer data: bit for bit)
+    got = sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad,
+                                  torch.zeros_like(acc), T=T, variant="mxu")
+    raw = [np.array(a) for a in st.read_batch_raw(0, 8)]
+    want = ref_spmm_tiles_acc(raw[0], nv.numpy(), *raw[1:],
+                              jnp.asarray(x_pad.numpy()),
+                              jnp.zeros(tuple(acc.shape)), T=T,
+                              variant="mxu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert sem_spmm.LAUNCHES == {"spmm_tiles_acc": 0, "spmm_tiles": 0,
+                                 "spmm_tiles_acc_mxu": 0,
+                                 "spmm_tiles_mxu": 0}
     with pytest.raises(ValueError, match="index planes"):
         sem_spmm.spmm_tiles_acc(meta, nv, rows.to(torch.int64), cols, vals,
                                 x_pad, acc, T=T)
@@ -261,7 +270,10 @@ def test_plain_runs_launch_nothing_and_wrappers_validate(stores):
     with pytest.raises(ValueError, match="6-int meta"):
         sem_spmm.spmm_tiles_acc(meta, nv, rows.to(torch.uint8),
                                 cols.to(torch.uint8), vals, x_pad, acc, T=T)
-    assert pick_variant(512) == pick_variant(16384) == "gather"
+    # the H100 crossover (PERF.md, section 6): gather wins at every
+    # measured T
+    assert all(pick_variant(t) == "gather"
+               for t in (256, 512, 1024, 2048, 4096, 16384))
 
 
 @pytest.mark.parametrize("ring", ["plus_times", "or_and", "min_plus",

@@ -128,3 +128,31 @@ def test_stores_are_byte_identical_both_ways(small_valued, tmp_path):
         for s, n in ps.batch_plan(37):
             for u, v in zip(ps.read_batch_raw(s, n), rs.read_batch_raw(s, n)):
                 np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("T,C", [(32, 8), (256, 64), (4096, 1024)])
+def test_chunking_and_dedup_equal_the_reference(T, C):
+    """The port orders entries with one stable argsort of a combined key
+    where the reference lexsorts; ``dedup`` and ``to_chunked`` must still
+    give the reference's arrays exactly, duplicates and int32 input
+    included."""
+    from repro.core.formats import COO as RefCOO
+    from repro.core.formats import to_chunked as ref_chunked
+    rng = np.random.default_rng(T)
+    n = 3 * T + 5
+    rows = rng.integers(0, n, 20 * n)
+    cols = rng.integers(0, n, 20 * n)
+    vals = rng.standard_normal(20 * n).astype(np.float32)
+    for r, c in ((rows, cols), (rows.astype(np.int32), cols.astype(np.int32))):
+        ref = RefCOO(n, n, r, c, vals)
+        port = coo_from_arrays(n, n, r, c, vals)
+        rd, pd = ref.dedup(), port.dedup()
+        for a, b in ((rd.rows, pd.rows), (rd.cols, pd.cols),
+                     (rd.vals, pd.vals)):
+            np.testing.assert_array_equal(a, b)
+        for src_ref, src_port in ((ref, port), (rd, pd)):
+            want, got = ref_chunked(src_ref, T=T, C=C), to_chunked(src_port,
+                                                                  T=T, C=C)
+            for f in ("meta", "row_local", "col_local", "vals"):
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f), f)

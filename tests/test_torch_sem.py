@@ -196,13 +196,18 @@ def test_prestaged_operand_is_taken_as_is(paths, x8):
 
 
 def test_out_of_slice_features_raise(paths, x8):
-    """Not in this slice: other semirings, the densify variant, stores with
-    a delta log.  Each raises instead of answering wrongly."""
+    """Not in this slice: other semirings, stores with a delta log.  Each
+    raises instead of answering wrongly.  The densify variant, refused in
+    slice 1, now answers as the reference's Pallas mxu step does."""
     port = port_engine(paths["val"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.multiply(x8, semiring="min_plus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine(paths["val"], kernel_variant="mxu").multiply(x8)
+    mxu = port_engine(paths["val"], kernel_variant="mxu")
+    ref = RefSEMSpMM(RefTileStore.open(paths["val"]),
+                     RefConfig(chunk_batch=BATCH, use_pallas=True,
+                               pallas_variant="mxu"))
+    np.testing.assert_array_equal(mxu.multiply(x8), ref.multiply(x8))
+    assert_same_run(mxu, ref)
     with pytest.raises(ValueError, match="unknown kernel variant"):
         port_engine(paths["val"], kernel_variant="vpu").multiply(x8)
     from repro_torch.io.storage import GraphHandle, UpdateBatch
