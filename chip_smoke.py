@@ -7,8 +7,8 @@ plain PyTorch versions.
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: the card's name, the device count, its power limit;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` each, started together (seconds and the registers
+2. build: the four CUDA sources in ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` each, started together (seconds, and the registers and spills
    ``-Xptxas -v`` reports);
 3. set-up: an R-MAT graph (edge factor 16) made from ``--seed`` at
    ``--scale``, its PageRank operator written as a valued TileStore
@@ -37,7 +37,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the densify kernel (SEM: K1b, IM: K2 mxu) against the gather kernel;
 8. eigensolver: thick-restart Lanczos (k = 4) over the SEM operator of the
    symmetrised graph, its basis on the card, against scipy's ``eigsh`` in
-   float64; then the same with the basis in a DenseStore (SEM-min).
+   float64; then the same with the basis in a DenseStore (SEM-min);
+9. Zamba2-7B at full width (81 layers, d_model 3584), float32 weights made
+   from ``--seed`` on the card: a plain prefill (B = 2, L = 2048, both
+   kernels' plain versions) in which every flash-attention (K3) and SSD
+   (K4) call also runs the kernel on the same inputs, held elementwise to
+   FLOAT_TOL of that call's error scale; both kernels timed on the first
+   calls' inputs, with their bounds and SDPA as K3's yardstick; then the
+   main path, the serving prefill ``model_api.forward(...,
+   logits_last_only=True)`` through the kernels: 13 K3 and 81 K4 launches,
+   finite logits no farther from the plain prefill's than twice the plain
+   prefill's own spread (the same prefill with K4 at Q = 128), and a traced
+   prefill's device time by kind of kernel;
+10. decode against prefill at full width: every layer's decode path on its
+   prefill inputs (a 128-token prompt), its increments within the
+   reference's decode tolerance, and the whole model's 128 decode steps
+   against the kernel prefill; then a ``BatchServer`` answers 4 requests
+   (4 slots, prompts of 64 tokens, 16 new tokens each);
+11. Mamba2-130M at full width: the same prefill checks (24 K4 launches)
+   and the same serving check.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without
@@ -894,6 +912,477 @@ def run_eigen_phase(wide, dev, card):
     log(f"eigensolver: SEM-min equals SEM-max within {rel:.3e}")
 
 
+# -- phases 9-11: the models ----------------------------------------------------
+PREFILL_B, PREFILL_L = 2, 2048      # the serving prefill at full width
+DECODE_L = 128                      # decode against prefill: prompt length
+SERVE_REQ, SERVE_PROMPT, SERVE_NEW = 4, 64, 16
+# Decode against prefill, layer by layer: the reference's
+# test_decode_matches_forward_prefix tolerance.
+DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3
+
+
+@contextlib.contextmanager
+def kernel_impl(which: str):
+    """Both model toggles (attention, SSD) set to "kernel" or "plain"."""
+    from repro_torch.models import layers, ssm
+    prev = layers.set_flash_impl(which), ssm.set_ssd_impl(which)
+    try:
+        yield
+    finally:
+        layers.set_flash_impl(prev[0])
+        ssm.set_ssd_impl(prev[1])
+
+
+@contextlib.contextmanager
+def patched(mod, name, make):
+    """``mod.name`` replaced by ``make(original)`` for the block."""
+    orig = getattr(mod, name)
+    setattr(mod, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).double().norm() / b.double().norm())
+
+
+def prefill(model, cfg, tokens):
+    """One serving prefill, ``forward(..., logits_last_only=True)``, with
+    its wall time (synchronised)."""
+    from repro_torch.models import model_api
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model_api.forward(model, cfg, {"tokens": tokens},
+                                  logits_last_only=True)
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0
+
+
+def attention_scale(q, k, v, causal: bool):
+    """First-order error scale of attention at these inputs, per output
+    element, in float64: ``E = sum_j p_j (S_j |v_j - o| + |v_j|)`` with p the
+    softmax, o the output and ``S_j = scale * sum_d |q_d| |k_jd|`` the
+    magnitude of score j's terms.  A float32 score carries a rounding error
+    of the order of 2**-24 * sqrt(hd) * S_j, and an error d_j in score j
+    moves the output by ``sum_j p_j d_j (v_j - o)``; the weighted sum rounds
+    by the order of 2**-24 * sum_j p_j |v_j|.  So two float32 computations
+    that sum in other orders differ by a small multiple of 1e-7 * E, and
+    FLOAT_TOL * E leaves room; a dropped, doubled or wrongly masked key moves
+    the output by the size of v.  Also returns the float64 output."""
+    B, L, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = 1.0 / np.sqrt(hd)
+    E = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    out = torch.empty_like(E)
+    future = torch.triu(torch.ones((L, L), dtype=torch.bool, device=q.device),
+                        1)
+    for b in range(B):
+        for h in range(H):
+            qh = q[b, :, h].double() * scale
+            kh, vh = k[b, :, h // G].double(), v[b, :, h // G].double()
+            s = qh @ kh.T
+            if causal:
+                s.masked_fill_(future, float("-inf"))
+            p = torch.softmax(s, dim=-1)
+            o = p @ vh
+            w = p * (qh.abs() @ kh.abs().T)
+            e = p @ vh.abs()
+            for d0 in range(0, hd, 16):
+                sl = slice(d0, d0 + 16)
+                e[:, sl] += (w[..., None] * (vh[None, :, sl]
+                                             - o[:, None, sl]).abs()).sum(1)
+            E[b, :, h], out[b, :, h] = e, o
+            del s, p, w
+    return E, out
+
+
+def ssd_scale(plain, x, dt, A, Bm, Cm, D, Q: int):
+    """First-order error scale of the SSD scan at these inputs, for y and
+    the final state: the plain scan on the terms' magnitudes (|x|, |B|,
+    |C|, |D|; dt > 0 and the decay weights are positive), times
+    ``1 + 2 * lam``.  ``lam`` is the largest |sum of dt*A| over a chunk:
+    each weight exp(cum_i - cum_j) comes from two cumulative sums of
+    magnitude up to lam, whose float32 rounding (of the order of 2**-24 *
+    lam, and the kernel's scan and the plain cumsum add in other orders)
+    makes the weight uncertain by that much relative, on top of the
+    rounding of the sums themselves.  A dropped or misplaced term, a
+    wrong decay or a wrong head moves y by the size of the terms."""
+    B, L, H, _ = x.shape
+    ty, ts = plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), D.abs(), Q=Q)
+    a = (dt * A[None, None, :]).reshape(B, L // Q, Q, H)
+    lam = float(a.sum(2).abs().max())
+    return ty * (1 + 2 * lam), ts * (1 + 2 * lam), lam
+
+
+@contextlib.contextmanager
+def checked_calls(stats: dict):
+    """Every call of K3's and K4's plain versions (as a plain prefill makes
+    them) also runs the kernel on the same inputs and holds it against the
+    plain result elementwise, within FLOAT_TOL of the call's error scale
+    (``attention_scale``, ``ssd_scale``), as check_float holds the SpMM
+    kernels.  ``stats`` gathers, per kernel, the calls, the largest
+    difference and its share of the limit, and the first call's inputs (for
+    timing)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ssd_chunk as k4
+
+    def note(name, args, kw, diff, share):
+        st = stats.setdefault(name, dict(calls=0, max_abs_diff=0.0,
+                                         share=0.0))
+        if not st["calls"]:
+            st["first"] = ([a.clone() for a in args], dict(kw))
+        st["calls"] += 1
+        st["max_abs_diff"] = max(st["max_abs_diff"], diff)
+        st["share"] = max(st["share"], share)
+
+    def k3_make(plain):
+        def wrapped(q, k, v, **kw):
+            want = plain(q, k, v, **kw)
+            got = k3.flash_attention(q, k, v, **kw)
+            scale, _ = attention_scale(q, k, v, kw["causal"])
+            err = (got - want).abs().double()
+            note("K3", (q, k, v), kw, float(err.max()),
+                 float((err / (FLOAT_TOL * scale)).max()))
+            return want
+        return wrapped
+
+    def k4_make(plain):
+        def wrapped(*args, **kw):
+            want = plain(*args, **kw)
+            got = k4.ssd_chunked(*args, **kw)
+            *scales, lam = ssd_scale(plain, *args, **kw)
+            share = max(float(((g - w).abs() / (FLOAT_TOL * e)).max())
+                        for g, w, e in zip(got, want, scales))
+            diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            note("K4", args, kw, diff, share)
+            stats["K4"]["lam"] = max(stats["K4"].get("lam", 0.0), lam)
+            return want
+        return wrapped
+    with patched(k3, "flash_attention_plain", k3_make), \
+            patched(k4, "ssd_chunked_plain", k4_make):
+        yield
+
+
+def time_k3(first, card):
+    """K3's times on the first shared-attention layer's prefill inputs,
+    its bound and SDPA's time as the yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k3
+    (q, k, v), kw = first
+    B, L, H, hd = q.shape
+    ms = cuda_ms(lambda: k3.flash_attention(q, k, v, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: k3.flash_attention_plain(q, k, v, **kw),
+                       reps=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=H != k.shape[2]), reps=10)
+    # causal: every query meets the keys up to its own, two products
+    flops = 4 * B * H * hd * L * (L + 1) // 2
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"K3 per call at {tuple(q.shape)} over {tuple(k.shape)}: {ms} ms "
+        f"(CUDA events, 10 calls), plain {plain_ms} ms, SDPA {library_ms} ms;"
+        f" bound {bound_ms} ms ({bound_by}: {flops / 1e9:.2f} GFLOP float32, "
+        f"{nbytes} B) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ssd_flops(B, L, H, dh, N, Q) -> int:
+    """Float32 operations the SSD function needs: per (batch, chunk) the
+    causal half of C B^T, which every head shares; per (batch, head, chunk)
+    the causal half of the weighted product, the carried-in state's
+    contribution, the state update and D x."""
+    tri = Q * (Q + 1) // 2
+    nc = L // Q
+    return (B * nc * 2 * N * tri
+            + B * H * nc * (2 * dh * tri + 4 * Q * N * dh + 2 * Q * dh))
+
+
+def time_k4(first, label, card):
+    """K4's times on the first Mamba layer's prefill inputs, its bound."""
+    from repro_torch.kernels import ssd_chunk as k4
+    args, kw = first
+    x, dt, A, Bm, Cm, D = args
+    ms = cuda_ms(lambda: k4.ssd_chunked(*args, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: k4.ssd_chunked_plain(*args, **kw), reps=3,
+                       warmup=1)
+    B, L, H, dh = x.shape
+    N = Bm.shape[-1]
+    flops = ssd_flops(B, L, H, dh, N, kw["Q"])
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
+                  + Cm.numel() + D.numel() + B * H * dh * N)
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"K4 {label} per call at x {tuple(x.shape)}, N = {N}, Q = "
+        f"{kw['Q']}: {ms} ms (CUDA events, 10 calls), plain {plain_ms} ms; "
+        f"no single PyTorch call computes SSD; bound {bound_ms} ms "
+        f"({bound_by}: {flops / 1e9:.2f} GFLOP float32, {nbytes} B) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def make_model(arch: str, seed: int, dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model_api
+    cfg = get_config(arch)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls run in full float32 (TF32 off)")
+    t0 = time.perf_counter()
+    model = model_api.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                                  dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == model_api.n_params(cfg), f"{arch}: every parameter made")
+    log(f"model {arch}: {n} parameters, {4 * n} B float32 on the card, made "
+        f"from seed {seed} in {time.perf_counter() - t0:.1f} s; "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}")
+    return cfg, model
+
+
+def prefill_breakdown(prof, secs: float) -> str:
+    """Device time of a traced prefill by kind of kernel (K3, K4, matrix
+    products, the rest), the card's busy time and its idle share."""
+    spans = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return "no device activity recorded: breakdown not measured"
+    kinds = {}
+    for e in spans:
+        name = e.name.lower()
+        kind = ("K3" if "flash_fwd_kernel" in name
+                else "K4" if "ssd_chunk_kernel" in name
+                else "matmul" if "gemm" in name or "cutlass" in name
+                else "other")
+        n, us = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(spans, key=lambda e: e.time_range.start):
+        lo, hi = e.time_range.start, e.time_range.end
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return (", ".join(f"{k}: {n} launches, {us / 1e3:.3f} ms"
+                      for k, (n, us) in sorted(kinds.items()))
+            + f"; device busy {busy_us / 1e3:.3f} ms of {secs * 1e3:.1f} ms"
+            f" (idle {1 - busy_us / 1e6 / secs:.4f})")
+
+
+def run_prefill_phase(arch, cfg, model, rng, dev, card, n_k3, n_k4):
+    """A plain prefill in which every K3 and K4 call is checked against the
+    kernel on the same inputs; the kernels timed on the first calls' inputs;
+    then the main path, the kernel prefill, its launches counted and its
+    logits against the plain prefill's, beside the plain prefill's own
+    spread (the same prefill with K4 at Q = 128, equal in exact
+    arithmetic)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ssd_chunk as k4
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (PREFILL_B, PREFILL_L))).to(dev)
+    stats = {}
+    with kernel_impl("plain"), checked_calls(stats):
+        want, plain_s = prefill(model, cfg, tokens)
+    log(f"{arch} plain prefill (B = {PREFILL_B}, L = {PREFILL_L}), every "
+        f"kernel call checked: {plain_s:.3f} s")
+    records = {}
+    for key in ("K3", "K4"):
+        if key not in stats:
+            continue
+        st = stats[key]
+        log(f"{arch} {key} on the prefill's inputs: {st['calls']} calls, max "
+            f"|kernel - plain| {st['max_abs_diff']}, at most {st['share']} of "
+            f"the limit ({FLOAT_TOL} of the error scale"
+            + (f"; largest |sum of dt*A| over a chunk {st['lam']})"
+               if key == "K4" else ")"))
+        check(st["share"] <= 1.0, f"{arch} {key}: every call of the prefill "
+              "within its limit of the plain version")
+        timed = (time_k3(st["first"], card) if key == "K3"
+                 else time_k4(st["first"], arch, card))
+        records[key] = dict(timed, max_abs_diff=st["max_abs_diff"])
+    check(stats.get("K3", {}).get("calls", 0) == n_k3
+          and stats["K4"]["calls"] == n_k4, f"{arch}: the plain prefill made "
+          f"{n_k3} K3 and {n_k4} K4 calls")
+    del stats
+    with patched(k4, "ssd_chunked_plain",
+                 lambda plain: lambda *a, **kw: plain(*a, Q=128)), \
+            kernel_impl("plain"):
+        spread_logits, _ = prefill(model, cfg, tokens)
+    spread = rel_l2(spread_logits, want)
+    with kernel_impl("kernel"):
+        k3.reset_launches()
+        k4.reset_launches()
+        got, secs = prefill(model, cfg, tokens)
+        launches = (k3.LAUNCHES["flash_attention"],
+                    k4.LAUNCHES["ssd_chunked"])
+        _, warm = prefill(model, cfg, tokens)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, traced = prefill(model, cfg, tokens)
+    log(f"{arch} prefill trace (a third prefill, traced, {traced:.3f} s): "
+        + prefill_breakdown(prof, traced))
+    dist = rel_l2(got, want)
+    log(f"{arch} prefill: K3 launches {launches[0]}, K4 launches "
+        f"{launches[1]}; logits against the plain prefill: relative L2 "
+        f"{dist}, max |diff| {float((got - want).abs().max())}, argmax agree "
+        f"{float((got.argmax(-1) == want.argmax(-1)).float().mean())}; the "
+        f"plain prefill at Q = 128 against Q = 256: relative L2 {spread}; max "
+        f"|logit| {float(want.abs().max())}; {secs:.3f} s (first), "
+        f"{warm:.3f} s (second) a prefill, "
+        f"{PREFILL_B * PREFILL_L / warm:.1f} tokens/s [{card}]")
+    check(launches == (n_k3, n_k4), f"{arch} prefill: {n_k3} K3 and {n_k4} "
+          f"K4 launches, got {launches}")
+    check(got.shape == (PREFILL_B, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(got).all()), f"{arch} prefill: finite "
+          "logits of the expected shape")
+    check(dist <= 2 * spread + 1e-4, f"{arch} prefill: kernel logits no "
+          "farther from the plain prefill's than twice its own spread")
+    return records, launches
+
+
+@contextlib.contextmanager
+def layer_io(seen: list):
+    """Record each layer's input and output during a forward:
+    ("attn" | "mamba", layer module, x in, x out)."""
+    from repro_torch.models import transformer as tf
+
+    def make(kind):
+        def mk(fn):
+            def wrapped(cfg, lp, x, *a, **kw):
+                out = fn(cfg, lp, x, *a, **kw)
+                seen.append((kind, lp, x.clone(), out[0].clone()))
+                return out
+            return wrapped
+        return mk
+    with patched(tf, "_shared_attn_apply", make("attn")), \
+            patched(tf, "_mamba_apply", make("mamba")):
+        yield
+
+
+def run_decode_phase(arch, cfg, model, rng, dev, card):
+    """Decode against prefill at full width.  Layer by layer: the kernel
+    prefill of a DECODE_L-token prompt records every layer's input and
+    output; each layer then takes its input one token at a time through its
+    decode path (KV cache, conv and state caches), and its increments
+    (output minus input) are held to the prefill's within the reference's
+    decode tolerance.  End to end: the prompt through DECODE_L decode steps
+    of the whole model, its last logits against the prefill's."""
+    from repro_torch.models import model_api
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.ssm import mamba_dims
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (PREFILL_B, DECODE_L))).to(dev)
+    seen = []
+    with kernel_impl("kernel"), layer_io(seen):
+        want, _ = prefill(model, cfg, toks)
+    _, H, conv_dim = mamba_dims(cfg.d_model, cfg.ssm_expand,
+                                cfg.ssm_head_dim, cfg.ssm_state)
+    worst = {"attn": 0.0, "mamba": 0.0}
+    bad = []
+    for i, (kind, lp, x, out) in enumerate(seen):
+        if kind == "attn":
+            shape = (PREFILL_B, DECODE_L, cfg.n_kv_heads, cfg.hd)
+            cache = {"k": torch.zeros(shape, device=dev),
+                     "v": torch.zeros(shape, device=dev)}
+        else:
+            cache = {"conv": torch.zeros((PREFILL_B, cfg.ssm_conv - 1,
+                                          conv_dim), device=dev),
+                     "state": torch.zeros((PREFILL_B, H, cfg.ssm_head_dim,
+                                           cfg.ssm_state), device=dev)}
+        steps = []
+        for t in range(DECODE_L):
+            xt = x[:, t:t + 1]
+            if kind == "attn":
+                o, _ = tf._shared_attn_apply(
+                    cfg, lp, xt, torch.arange(t, t + 1, device=dev), cache,
+                    t, kv_chunk=DECODE_L)
+            else:
+                o, _ = tf._mamba_apply(cfg, lp, xt, cache)
+            steps.append(o)
+        inc_dec = torch.cat(steps, dim=1) - x
+        inc_pre = out - x
+        err = (inc_dec - inc_pre).abs()
+        share = float((err / (DECODE_ATOL + DECODE_RTOL * inc_pre.abs()))
+                      .max())
+        worst[kind] = max(worst[kind], share)
+        if share > 1.0:
+            bad.append((i, kind, float(err.max())))
+    log(f"{arch} decode vs prefill, layer by layer ({len(seen)} layers, "
+        f"{DECODE_L} tokens, B = {PREFILL_B}): increments within rtol "
+        f"{DECODE_RTOL}, atol {DECODE_ATOL}, at most {worst['attn']} of the "
+        f"limit (shared attention) and {worst['mamba']} (Mamba); over: "
+        f"{bad[:5]}")
+    del seen
+    cache = model_api.init_cache(cfg, PREFILL_B, DECODE_L,
+                                 dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_L):
+        logits, cache = model_api.decode_step(model, cfg, cache,
+                                              toks[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / DECODE_L
+    dist = rel_l2(logits, want)
+    cos = float(torch.nn.functional.cosine_similarity(
+        logits.flatten().double(), want.flatten().double(), dim=0))
+    log(f"{arch} decode vs prefill, end to end: last logits relative L2 "
+        f"{dist}, cosine {cos}, max |diff| {float((logits - want).abs().max())}"
+        f"; {secs * 1e3:.2f} ms a decode step (B = {PREFILL_B}) [{card}]")
+    check(not bad, f"{arch}: every layer's decode within rtol {DECODE_RTOL}, "
+          f"atol {DECODE_ATOL} of its prefill")
+    check(bool(torch.isfinite(logits).all()) and cos > 0.5,
+          f"{arch}: decode logits finite and aligned with the prefill's")
+
+
+def run_serve_phase(arch, cfg, model, rng, dev, card):
+    """The BatchServer answers SERVE_REQ requests with as many slots."""
+    from repro_torch.launch.serve import BatchServer, Request
+    server = BatchServer(cfg, slots=SERVE_REQ,
+                         max_seq=SERVE_PROMPT + SERVE_NEW + 1, model=model,
+                         device=dev)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, SERVE_PROMPT)
+                    .astype(np.int32), SERVE_NEW) for i in range(SERVE_REQ)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = server.submit_all(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(sorted(results) == list(range(SERVE_REQ))
+          and all(len(v) == SERVE_NEW for v in results.values())
+          and all(0 <= t < cfg.vocab for v in results.values() for t in v),
+          f"{arch} serve: every request completes with tokens below vocab")
+    steps = server.stats["prefill_tokens"] + server.stats["decode_steps"]
+    n_new = sum(len(v) for v in results.values())
+    log(f"{arch} serve: {SERVE_REQ} requests, {SERVE_REQ} slots, prompts of "
+        f"{SERVE_PROMPT}, {n_new} new tokens in {secs:.3f} s: {steps} decode "
+        f"steps ({secs / steps * 1e3:.2f} ms each), "
+        f"{(server.stats['prefill_tokens'] + n_new) / secs:.1f} tokens/s, "
+        f"{n_new / secs:.2f} new tokens/s; stats {server.stats}; first "
+        f"request {results[0][:8]} [{card}]")
+
+
+def run_model_phases(seed, rng, dev, card):
+    """Zamba2-7B at full width: prefill (K3, K4), decode, serve; then
+    Mamba2-130M: prefill (K4) and serve."""
+    records, launches = {}, {}
+    cfg, model = make_model("zamba2-7b", seed, dev)
+    n_super = cfg.n_layers // cfg.attn_every
+    recs, (launches["K3"], launches["K4"]) = run_prefill_phase(
+        "zamba2-7b", cfg, model, rng, dev, card, n_super, cfg.n_layers)
+    records.update(recs)
+    run_decode_phase("zamba2-7b", cfg, model, rng, dev, card)
+    run_serve_phase("zamba2-7b", cfg, model, rng, dev, card)
+    del model
+    torch.cuda.empty_cache()
+    cfg, model = make_model("mamba2-130m", seed, dev)
+    run_prefill_phase("mamba2-130m", cfg, model, rng, dev, card, 0,
+                      cfg.n_layers)
+    run_serve_phase("mamba2-130m", cfg, model, rng, dev, card)
+    del model
+    torch.cuda.empty_cache()
+    return records, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -924,9 +1413,12 @@ def main() -> int:
     for name, info in build_all().items():
         regs = [ln.split(":", 1)[1].strip() for ln in info.ptxas.splitlines()
                 if "Used" in ln]
+        spills = sorted({ln.strip() for ln in info.ptxas.splitlines()
+                         if "spill" in ln})
         log(f"build: {info.path.name} in {info.seconds:.1f} s; ptxas, per "
-            f"instantiation: " + " | ".join(regs))
-    log(f"build: both sources in {time.perf_counter() - t0:.1f} s")
+            f"instantiation: " + " | ".join(regs) + "; spills: "
+            + " | ".join(spills))
+    log(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(args.seed)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -954,6 +1446,12 @@ def main() -> int:
         launches.update(phase("nmf", run_nmf_phase, args.scale, adj, ct,
                               stores, wide, cell, dev, card))
         phase("eigensolver", run_eigen_phase, wide, dev, card)
+        del adj, pr_op, ct, stores, wide, cell
+        torch.cuda.empty_cache()
+        model_records, model_launches = phase("models", run_model_phases,
+                                              args.seed, rng, dev, card)
+        records.update(model_records)
+        launches.update(model_launches)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -977,9 +1475,16 @@ def main() -> int:
                        source=src + "sem_spmm_mxu.cu",
                        replaces="src/repro/kernels/sem_spmm.py:253",
                        launches=launches["spmm_tiles_mxu"]),
+        "K3": dict(name="flash_attention (K3)",
+                   source=src + "flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention.py:85",
+                   launches=launches["K3"]),
+        "K4": dict(name="ssd_chunked (K4)", source=src + "ssd_chunk.cu",
+                   replaces="src/repro/kernels/ssd_chunk.py:73",
+                   launches=launches["K4"]),
     }
     kernels = []
-    for key in ("K1a", "K1b", "K2", "K2 mxu"):
+    for key in ("K1a", "K1b", "K2", "K2 mxu", "K3", "K4"):
         r = records[key]
         kernels.append(dict(
             meta[key], route="cuda",

@@ -1,7 +1,6 @@
-"""Carrying a matrix across from the JAX package.
+"""Carrying state across from the JAX package, without importing it.
 
-This system has no weights: its state is the sparse matrix.  Two routes
-carry it over without importing the JAX package:
+The sparse system's state is its matrix.  Two routes carry it over:
 
 * the on-disk format — a store written by the JAX package's
   ``TileStore.write`` or ``.optimize()`` opens in
@@ -10,14 +9,23 @@ carry it over without importing the JAX package:
 * the in-memory layouts — :func:`chunked_from_arrays` and
   :func:`coo_from_arrays` rebuild this package's ``ChunkedTiles`` / ``COO``
   from the reference's fields handed over as numpy arrays.
+
+The model substrate's state is its weights: :func:`params_from_jax` builds
+the port's model from the reference's parameter tree handed over as nested
+dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
+from torch import nn
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.formats import COO, ChunkedTiles
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.transformer import build_model
 
 
 def chunked_from_arrays(n_rows: int, n_cols: int, T: int, C: int,
@@ -51,3 +59,20 @@ def coo_from_arrays(n_rows: int, n_cols: int, rows: np.ndarray,
         raise ValueError("vals must match rows in length")
     return COO(int(n_rows), int(n_cols), rows, cols,
                None if vals is None else np.asarray(vals))
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict,
+                    device: DeviceLike = None) -> nn.Module:
+    """The port's model for ``cfg`` holding the values of the reference's
+    parameter tree (nested dicts of numpy arrays with the reference's
+    stacked shapes), on ``device``.  The stacks (``layers``,
+    ``mamba_super`` (n_super, per, ...), ``mamba_tail``) are unstacked into
+    the model's ModuleLists.  Raises on a missing or extra key, or on a
+    shape that differs from the reference's definition."""
+    device = resolve_device(device)
+
+    def to_torch(node):
+        if isinstance(node, dict):
+            return {k: to_torch(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, copy=True)).to(device)
+    return build_model(cfg, to_torch(tree))

@@ -70,7 +70,7 @@ def build(name: str) -> BuildInfo:
     return BuildInfo(name, lib, seconds, report)
 
 
-SOURCES = ("sem_spmm", "sem_spmm_mxu")
+SOURCES = ("sem_spmm", "sem_spmm_mxu", "flash_attention", "ssd_chunk")
 
 
 def build_all() -> Dict[str, BuildInfo]:
@@ -79,25 +79,29 @@ def build_all() -> Dict[str, BuildInfo]:
         return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
-def _load(name: str, entry: str) -> ctypes.CDLL:
+_P, _I, _Q, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# The chunk-batch kernels share one signature (sem_spmm.cu).
+_BATCH = [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _Q, _I, _I, _I, _I,
+          _P]
+# C signature of each source's entry point.
+_ENTRIES = {
+    "sem_spmm": ("sem_spmm_batch", _BATCH),
+    "sem_spmm_mxu": ("sem_spmm_mxu_batch", _BATCH),
+    "flash_attention": ("flash_attention_fwd", [_P, _P, _P, _P, _I, _I, _I,
+                                                _I, _I, _I, _I, _F, _F, _I,
+                                                _P]),
+    "ssd_chunk": ("ssd_chunk_fwd", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _P]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu``, built at first use, with the C signature of its
-    entry point declared (both entry points take the same arguments)."""
+    entry point declared."""
     lib = ctypes.CDLL(str(build(name).path))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    entry, argtypes = _ENTRIES[name]
     fn = getattr(lib, entry)
-    fn.argtypes = [p, i, p, p, i, p, i, p, p, p, i, i, i, i, p]
-    fn.restype = i
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def sem_spmm_lib() -> ctypes.CDLL:
-    """The gather kernel, ``sem_spmm.cu`` (entry ``sem_spmm_batch``)."""
-    return _load("sem_spmm", "sem_spmm_batch")
-
-
-@functools.lru_cache(maxsize=None)
-def sem_spmm_mxu_lib() -> ctypes.CDLL:
-    """The densify kernel, ``sem_spmm_mxu.cu`` (entry
-    ``sem_spmm_mxu_batch``)."""
-    return _load("sem_spmm_mxu", "sem_spmm_mxu_batch")

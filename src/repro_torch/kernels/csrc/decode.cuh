@@ -15,6 +15,36 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// An operand element as float: float32 as it is, bfloat16 widened.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The one-shot product with a bfloat16 operand sums in a float32 scratch
+// accumulator and writes its bfloat16 output once, here, at the end.
+__global__ void f32_to_bf16_kernel(const float* __restrict__ in,
+                                   __nv_bfloat16* __restrict__ out,
+                                   long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+                     + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    out[i] = __float2bfloat16_rn(in[i]);
+}
+
+inline cudaError_t write_bf16(const void* acc, void* out, long long n,
+                              cudaStream_t stream) {
+  if (n > 0) {
+    const long long blocks = (n + 255) / 256;
+    f32_to_bf16_kernel<<<static_cast<int>(blocks < 65536 ? blocks : 65536),
+                         256, 0, stream>>>(
+        static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(out), n);
+  }
+  return cudaGetLastError();
+}
 
 template <int kThreads, typename RowT, typename ColT>
 __device__ __forceinline__ void decode_lanes(const int32_t* m, const RowT* rg,

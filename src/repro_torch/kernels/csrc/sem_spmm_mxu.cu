@@ -60,6 +60,10 @@
 //     live lanes.  The route stays dense: every (lane, t) pair of the live
 //     rows goes through the tensor cores.
 //
+// X may be float32 or, in the one-shot product, bfloat16, widened to float32
+// as it is staged; the accumulator stays float32 and the entry point writes
+// the bfloat16 output once at the end (decode.cuh, write_bf16).
+//
 // The host entry point has a plain C interface, like the gather kernel's.
 
 #include <cstdint>
@@ -104,13 +108,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename RowT, typename ColT, bool kBinary, int NT>
+template <typename RowT, typename ColT, bool kBinary, int NT, typename XT>
 __global__ void __launch_bounds__(kThreads)
 chunk_mxu_kernel(const int32_t* __restrict__ meta, int meta_ints,
                  const int32_t* __restrict__ n_valid,
                  const RowT* __restrict__ rows, const ColT* __restrict__ cols,
                  const float* __restrict__ vals,
-                 const float* __restrict__ x_pad, float* __restrict__ acc,
+                 const XT* __restrict__ x_pad, float* __restrict__ acc,
                  int C, int T, int p) {
   constexpr int W = stride<NT>();
   const int g = blockIdx.x;
@@ -150,7 +154,7 @@ chunk_mxu_kernel(const int32_t* __restrict__ meta, int meta_ints,
   const int warp = threadIdx.x >> 5;
   const int grp = (threadIdx.x & 31) >> 2;   // mma groupID
   const int tig = threadIdx.x & 3;           // mma thread-in-group
-  const float* xb = x_pad + static_cast<size_t>(tile_col) * T * p;
+  const XT* xb = x_pad + static_cast<size_t>(tile_col) * T * p;
   float* ob = acc + static_cast<size_t>(tile_row) * T * p;
   const int n_row_groups = (T + 15) / 16;
 
@@ -176,7 +180,8 @@ chunk_mxu_kernel(const int32_t* __restrict__ meta, int meta_ints,
           const int t = e / (8 * NT);
           const int n = e - t * (8 * NT);
           const float xv = (t0 + t < T && j0 + n < p)
-              ? __ldg(xb + static_cast<size_t>(t0 + t) * p + j0 + n) : 0.0f;
+              ? to_float(xb[static_cast<size_t>(t0 + t) * p + j0 + n])
+              : 0.0f;
           put_split(xs_hi, xs_lo, t * W + n, xv);
         }
         __syncthreads();
@@ -272,12 +277,12 @@ size_t smem_bytes(int C, int p) {
   return 12 * c_pad + 8 * static_cast<size_t>(W) * (kTSlab + kLaneSlab);
 }
 
-template <typename RowT, typename ColT, bool kBinary, int NT>
+template <typename RowT, typename ColT, bool kBinary, int NT, typename XT>
 cudaError_t launch(const void* meta, int meta_ints, const void* n_valid,
                    const void* rows, const void* cols, const void* vals,
                    const void* x_pad, void* acc, int n_chunks, int C, int T,
                    int p, cudaStream_t stream) {
-  auto kernel = chunk_mxu_kernel<RowT, ColT, kBinary, NT>;
+  auto kernel = chunk_mxu_kernel<RowT, ColT, kBinary, NT, XT>;
   const size_t smem = smem_bytes(C, p);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -288,61 +293,90 @@ cudaError_t launch(const void* meta, int meta_ints, const void* n_valid,
         static_cast<const int32_t*>(meta), meta_ints,
         static_cast<const int32_t*>(n_valid), static_cast<const RowT*>(rows),
         static_cast<const ColT*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x_pad), static_cast<float*>(acc), C, T, p);
+        static_cast<const XT*>(x_pad), static_cast<float*>(acc), C, T, p);
   }
   return cudaGetLastError();
+}
+
+template <typename RowT, typename ColT, bool kBinary, typename XT>
+cudaError_t launch_width(const void* meta, int meta_ints, const void* n_valid,
+                         const void* rows, const void* cols, const void* vals,
+                         const void* x_pad, void* acc, int n_chunks, int C,
+                         int T, int p, cudaStream_t stream) {
+  if (p <= 8)
+    return launch<RowT, ColT, kBinary, 1, XT>(meta, meta_ints, n_valid, rows,
+                                              cols, vals, x_pad, acc, n_chunks,
+                                              C, T, p, stream);
+  return launch<RowT, ColT, kBinary, 2, XT>(meta, meta_ints, n_valid, rows,
+                                            cols, vals, x_pad, acc, n_chunks,
+                                            C, T, p, stream);
 }
 
 template <typename RowT, typename ColT>
 cudaError_t launch_values(const void* meta, int meta_ints, const void* n_valid,
                           const void* rows, const void* cols, const void* vals,
-                          const void* x_pad, void* acc, int n_chunks, int C,
-                          int T, int p, cudaStream_t stream) {
-  if (vals == nullptr) {
-    if (p <= 8)
-      return launch<RowT, ColT, true, 1>(meta, meta_ints, n_valid, rows, cols,
-                                         vals, x_pad, acc, n_chunks, C, T, p,
-                                         stream);
-    return launch<RowT, ColT, true, 2>(meta, meta_ints, n_valid, rows, cols,
-                                       vals, x_pad, acc, n_chunks, C, T, p,
-                                       stream);
+                          const void* x_pad, int x_bf16, void* acc,
+                          int n_chunks, int C, int T, int p,
+                          cudaStream_t stream) {
+  if (x_bf16) {
+    if (vals == nullptr)
+      return launch_width<RowT, ColT, true, __nv_bfloat16>(
+          meta, meta_ints, n_valid, rows, cols, vals, x_pad, acc, n_chunks, C,
+          T, p, stream);
+    return launch_width<RowT, ColT, false, __nv_bfloat16>(
+        meta, meta_ints, n_valid, rows, cols, vals, x_pad, acc, n_chunks, C,
+        T, p, stream);
   }
-  if (p <= 8)
-    return launch<RowT, ColT, false, 1>(meta, meta_ints, n_valid, rows, cols,
-                                        vals, x_pad, acc, n_chunks, C, T, p,
-                                        stream);
-  return launch<RowT, ColT, false, 2>(meta, meta_ints, n_valid, rows, cols,
-                                      vals, x_pad, acc, n_chunks, C, T, p,
-                                      stream);
+  if (vals == nullptr)
+    return launch_width<RowT, ColT, true, float>(meta, meta_ints, n_valid,
+                                                 rows, cols, vals, x_pad, acc,
+                                                 n_chunks, C, T, p, stream);
+  return launch_width<RowT, ColT, false, float>(meta, meta_ints, n_valid, rows,
+                                                cols, vals, x_pad, acc,
+                                                n_chunks, C, T, p, stream);
+}
+
+cudaError_t dispatch(const void* meta, int meta_ints, const void* n_valid,
+                     const void* rows, int row_bytes, const void* cols,
+                     int col_bytes, const void* vals, const void* x_pad,
+                     int x_bf16, void* acc, int n_chunks, int C, int T, int p,
+                     cudaStream_t s) {
+  if (row_bytes == 2 && col_bytes == 2)
+    return launch_values<uint16_t, uint16_t>(meta, meta_ints, n_valid, rows,
+                                             cols, vals, x_pad, x_bf16, acc,
+                                             n_chunks, C, T, p, s);
+  if (row_bytes == 4 && col_bytes == 4)
+    return launch_values<int32_t, int32_t>(meta, meta_ints, n_valid, rows,
+                                           cols, vals, x_pad, x_bf16, acc,
+                                           n_chunks, C, T, p, s);
+  if (row_bytes == 1 && col_bytes == 1)
+    return launch_values<uint8_t, uint8_t>(meta, meta_ints, n_valid, rows,
+                                           cols, vals, x_pad, x_bf16, acc,
+                                           n_chunks, C, T, p, s);
+  if (row_bytes == 2 && col_bytes == 1)
+    return launch_values<uint16_t, uint8_t>(meta, meta_ints, n_valid, rows,
+                                            cols, vals, x_pad, x_bf16, acc,
+                                            n_chunks, C, T, p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // One chunk batch by densifying: acc (n_tile_rows*T, p) += A_batch @ x_pad,
-// in place.  Arguments as sem_spmm_batch's (sem_spmm.cu).  Returns a
-// cudaError_t; cudaErrorInvalidValue for planes it does not take.
+// in place.  Arguments as sem_spmm_batch's (sem_spmm.cu), bfloat16 operand
+// and output included.  Returns a cudaError_t; cudaErrorInvalidValue for
+// planes it does not take.
 extern "C" int sem_spmm_mxu_batch(const void* meta, int meta_ints,
                                   const void* n_valid, const void* rows,
                                   int row_bytes, const void* cols,
                                   int col_bytes, const void* vals,
-                                  const void* x_pad, void* acc, int n_chunks,
+                                  const void* x_pad, int x_bf16, void* acc,
+                                  void* out, long long n_out, int n_chunks,
                                   int C, int T, int p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_bytes == 2 && col_bytes == 2)
-    return launch_values<uint16_t, uint16_t>(meta, meta_ints, n_valid, rows,
-                                             cols, vals, x_pad, acc, n_chunks,
-                                             C, T, p, s);
-  if (row_bytes == 4 && col_bytes == 4)
-    return launch_values<int32_t, int32_t>(meta, meta_ints, n_valid, rows,
-                                           cols, vals, x_pad, acc, n_chunks,
-                                           C, T, p, s);
-  if (row_bytes == 1 && col_bytes == 1)
-    return launch_values<uint8_t, uint8_t>(meta, meta_ints, n_valid, rows,
-                                           cols, vals, x_pad, acc, n_chunks,
-                                           C, T, p, s);
-  if (row_bytes == 2 && col_bytes == 1)
-    return launch_values<uint16_t, uint8_t>(meta, meta_ints, n_valid, rows,
-                                            cols, vals, x_pad, acc, n_chunks,
-                                            C, T, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = dispatch(meta, meta_ints, n_valid, rows, row_bytes,
+                                   cols, col_bytes, vals, x_pad, x_bf16, acc,
+                                   n_chunks, C, T, p, s);
+  if (err != cudaSuccess || out == nullptr) return static_cast<int>(err);
+  return static_cast<int>(write_bf16(acc, out, n_out, s));
 }

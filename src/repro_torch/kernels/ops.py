@@ -45,11 +45,14 @@ def spmm_kernel(ct: ChunkedTiles, x, variant: str | None = None,
                 device: DeviceLike = None) -> torch.Tensor:
     """``out = A @ X`` through the kernel; A as ChunkedTiles (numpy planes,
     or tensors already resident on ``device``), X (n, p).  Returns
-    (n_rows, p) float32 on ``device``."""
+    (n_rows, p) on ``device``: bfloat16 for a bfloat16 X, as the
+    reference's ``spmm_pallas`` keeps X's dtype, float32 otherwise."""
     device = resolve_device(device)
     variant = variant or pick_variant(ct.T)
-    x = to_device(x, device, torch.float32)
-    x_pad = torch.zeros((ct.padded_cols, x.shape[1]), dtype=torch.float32,
+    x = torch.as_tensor(x)
+    dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    x = to_device(x, device, dtype)
+    x_pad = torch.zeros((ct.padded_cols, x.shape[1]), dtype=dtype,
                         device=device)
     x_pad[: x.shape[0]] = x
     out = spmm_tiles(to_device(ct.meta, device, torch.int32),

@@ -11,7 +11,11 @@ plain PyTorch version beside it.
   bits), int32 (host-decoded), or an optimized store's uint8 flattened-key
   deltas, decoded from the bases in ``meta`` columns 4/5.
 * :func:`spmm_tiles` is the one-shot ``A @ X`` over a whole ChunkedTiles:
-  the same kernel on a zeroed accumulator with ``n_valid = n_chunks``.
+  the same kernel on a zeroed accumulator with ``n_valid = n_chunks``.  Its
+  operand may be bfloat16, as the reference's may: the kernel widens each
+  element to float32, sums in a float32 accumulator and writes the
+  bfloat16 output once at the end (the reference sums in bfloat16, so the
+  two agree to bfloat16's precision, not bit for bit).
 
 Each takes one of two variants, as the JAX package's kernels do:
 
@@ -42,7 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import sem_spmm_lib, sem_spmm_mxu_lib
+from repro_torch.kernels._build import library
 
 # Kernel launches per wrapper and variant since the last reset (see
 # reset_launches); the gather variant keeps the wrapper's plain name.
@@ -109,7 +113,7 @@ def spmm_tiles_acc_plain(meta, n_valid, row_local, col_local, vals, x_pad,
     """Plain PyTorch version of the kernel, same contract: decode, gather
     the live lanes of the valid chunks, ``index_add_`` into ``acc``."""
     nv = int(n_valid.reshape(-1)[0])
-    meta = meta[:nv]
+    meta, x_pad = meta[:nv], x_pad.float()
     r, c = _decode_lanes(meta, row_local[:nv], col_local[:nv], T)
     m = meta.to(torch.int64)
     lanes = torch.arange(r.shape[1], device=r.device)[None, :]
@@ -131,7 +135,7 @@ def spmm_tiles_acc_mxu_plain(meta, n_valid, row_local, col_local, vals,
     matrices.  Chunks go through in groups of at most ``MXU_PLAIN_BYTES``
     of one-hot matrices."""
     nv = int(n_valid.reshape(-1)[0])
-    meta = meta[:nv]
+    meta, x_pad = meta[:nv], x_pad.float()
     r, c = _decode_lanes(meta, row_local[:nv], col_local[:nv], T)
     m = meta.to(torch.int64)
     C, p = r.shape[1], x_pad.shape[1]
@@ -158,8 +162,9 @@ _PLAIN = {"gather": spmm_tiles_acc_plain, "mxu": spmm_tiles_acc_mxu_plain}
 
 
 def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
-           T: int, variant: str) -> None:
-    """Raise on anything the kernel does not take."""
+           T: int, variant: str, one_shot: bool) -> None:
+    """Raise on anything the kernel does not take; a bfloat16 operand
+    only in the one-shot product."""
     dev = acc.device
     for name, t in (("meta", meta), ("n_valid", n_valid),
                     ("row_local", row_local), ("col_local", col_local),
@@ -183,8 +188,11 @@ def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
     if vals is not None and (vals.dtype != torch.float32
                              or vals.shape != (n, C)):
         raise ValueError("vals must be float32 (n_chunks, C) or None")
-    if x_pad.dtype != torch.float32 or acc.dtype != torch.float32:
-        raise ValueError("x_pad and acc must be float32")
+    x_types = (torch.float32, torch.bfloat16) if one_shot else (
+        torch.float32,)
+    if x_pad.dtype not in x_types or acc.dtype != torch.float32:
+        raise ValueError("x_pad and acc must be float32 (x_pad may be "
+                         "bfloat16 in the one-shot spmm_tiles)")
     if x_pad.dim() != 2 or acc.dim() != 2 or x_pad.shape[1] != acc.shape[1]:
         raise ValueError("x_pad and acc must be 2-D with the same width p")
     if x_pad.shape[0] % T or acc.shape[0] % T:
@@ -195,15 +203,16 @@ def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
 
 
 def _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc,
-            T: int, variant: str) -> None:
+            T: int, variant: str, out: Optional[torch.Tensor]) -> None:
     """Launch the variant's CUDA kernel on the current stream; raise if
-    refused."""
-    planes = (meta, n_valid, row_local, col_local, vals, x_pad, acc)
+    refused.  With ``out`` (bfloat16, the size of ``acc``) the kernel also
+    writes the finished sums there."""
+    planes = (meta, n_valid, row_local, col_local, vals, x_pad, acc, out)
     if not all(t is None or t.is_contiguous() for t in planes):
         raise ValueError("the kernel takes contiguous tensors only")
     n, C = row_local.shape
-    entry = (sem_spmm_lib().sem_spmm_batch if variant == "gather"
-             else sem_spmm_mxu_lib().sem_spmm_mxu_batch)
+    entry = (library("sem_spmm").sem_spmm_batch if variant == "gather"
+             else library("sem_spmm_mxu").sem_spmm_mxu_batch)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     with torch.cuda.device(acc.device):
         err = entry(
@@ -211,27 +220,34 @@ def _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc,
             row_local.data_ptr(), _IDX_BYTES[row_local.dtype],
             col_local.data_ptr(), _IDX_BYTES[col_local.dtype],
             None if vals is None else vals.data_ptr(), x_pad.data_ptr(),
-            acc.data_ptr(), n, C, T, x_pad.shape[1], stream)
+            int(x_pad.dtype == torch.bfloat16), acc.data_ptr(),
+            None if out is None else out.data_ptr(),
+            0 if out is None else out.numel(), n, C, T, x_pad.shape[1],
+            stream)
     if err != 0:
         raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
 
 
 def _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T: int,
-           variant: str, wrapper: str) -> torch.Tensor:
+           variant: str, wrapper: str,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Validate, then run the variant's plain version on the CPU or launch
     its kernel on the card (counted under ``wrapper`` and the variant);
-    anything else raises."""
+    anything else raises.  Returns ``acc``, or ``out`` holding its sums
+    when given."""
     _check_variant(variant)
-    _check(meta, n_valid, row_local, col_local, vals, x_pad, acc, T, variant)
+    _check(meta, n_valid, row_local, col_local, vals, x_pad, acc, T, variant,
+           out is not None)
     if acc.device.type == "cpu":
-        return _PLAIN[variant](meta, n_valid, row_local, col_local, vals,
-                               x_pad, acc, T=T)
+        acc = _PLAIN[variant](meta, n_valid, row_local, col_local, vals,
+                              x_pad, acc, T=T)
+        return acc if out is None else out.copy_(acc)
     if acc.device.type != "cuda":
         raise ValueError(f"no kernel for device {acc.device}")
     _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
-            variant)
+            variant, out)
     LAUNCHES[wrapper if variant == "gather" else f"{wrapper}_mxu"] += 1
-    return acc
+    return acc if out is None else out
 
 
 def spmm_tiles_acc(meta, n_valid, row_local, col_local,
@@ -249,10 +265,13 @@ def spmm_tiles(meta, row_local, col_local, vals: Optional[torch.Tensor],
                x_pad, *, T: int, n_tile_rows: int,
                variant: str = "gather") -> torch.Tensor:
     """One-shot ``A @ X`` over a whole ChunkedTiles: returns
-    (n_tile_rows*T, p), every tile row summed from zero."""
-    acc = torch.zeros((n_tile_rows * T, x_pad.shape[1]), dtype=x_pad.dtype,
+    (n_tile_rows*T, p) in ``x_pad``'s dtype (float32 or bfloat16), every
+    tile row summed from zero in float32."""
+    acc = torch.zeros((n_tile_rows * T, x_pad.shape[1]), dtype=torch.float32,
                       device=x_pad.device)
     n_valid = torch.tensor([meta.shape[0]], dtype=torch.int32,
                            device=x_pad.device)
+    out = (torch.empty(acc.shape, dtype=torch.bfloat16, device=x_pad.device)
+           if x_pad.dtype == torch.bfloat16 else None)
     return _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
-                  variant, "spmm_tiles")
+                  variant, "spmm_tiles", out)

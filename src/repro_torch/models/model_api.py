@@ -1,0 +1,155 @@
+"""Model API over the ported families (``ssm`` and ``hybrid``), one entry
+point per stage as in the JAX package's ``models/model_api.py``:
+
+* :func:`pdefs` / :func:`init_params` / :func:`n_params` — the parameter
+  tree (declarative ``PDef``) and the model holding it;
+* :func:`forward` — full-sequence forward (prefill);
+  ``logits_last_only=True`` is the serving prefill;
+* :func:`cache_shapes` / :func:`init_cache` — the decode state;
+* :func:`decode_step` — one token against the cache (updated in place);
+* :func:`make_batch` — a random batch of one shape cell.
+
+Every entry point that makes tensors runs on the card unless the caller
+passes ``device="cpu"``.  The other families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.params import materialize
+from repro_torch.models.params import n_params as _n_params
+from repro_torch.models.ssm import mamba_dims
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a tensor not yet made (the JAX package's
+    ``ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def pdefs(cfg: ArchConfig) -> dict:
+    return tf.decoder_pdefs(cfg)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: DeviceLike = None,
+                dtype: torch.dtype = torch.float32) -> nn.Module:
+    """The model with parameters made from ``generator`` (see
+    :func:`~repro_torch.models.params.materialize`) on ``device``."""
+    model = tf.build_model(cfg, materialize(pdefs(cfg), generator, device))
+    return model if dtype == torch.float32 else model.to(dtype)
+
+
+def n_params(cfg: ArchConfig) -> int:
+    return _n_params(pdefs(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def forward(params: nn.Module, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            logits_last_only: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, L, V) float32, aux_loss scalar).
+    ``logits_last_only`` (serving prefill) slices the hidden state to the
+    final position before the unembedding.  ``remat`` is accepted and has
+    no effect without gradients."""
+    if cfg.family == "ssm":
+        return tf.ssm_forward(params, cfg, batch["tokens"], remat=remat,
+                              last_only=logits_last_only)
+    if cfg.family == "hybrid":
+        return tf.hybrid_forward(params, cfg, batch["tokens"], remat=remat,
+                                 last_only=logits_last_only)
+    raise tf._unported(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decode cache
+# ---------------------------------------------------------------------------
+def cache_shapes(cfg: ArchConfig, B: int, S: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The decode-state tree as :class:`TensorSpec`s (SSM states are always
+    float32)."""
+    if cfg.family not in tf.FAMILIES:
+        raise tf._unported(cfg)
+    nl, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    d_inner, H, conv_dim = mamba_dims(cfg.d_model, cfg.ssm_expand,
+                                      cfg.ssm_head_dim, cfg.ssm_state)
+    conv = (B, cfg.ssm_conv - 1, conv_dim)
+    state = (B, H, cfg.ssm_head_dim, cfg.ssm_state)
+    f32 = torch.float32
+    if cfg.family == "ssm":
+        return {"conv": TensorSpec((nl,) + conv, dtype),
+                "state": TensorSpec((nl,) + state, f32)}
+    n_super = nl // cfg.attn_every
+    per = cfg.attn_every
+    tail = nl - n_super * per
+    tree = {
+        "attn_k": TensorSpec((n_super, B, S, KV, hd), dtype),
+        "attn_v": TensorSpec((n_super, B, S, KV, hd), dtype),
+        "super_conv": TensorSpec((n_super, per) + conv, dtype),
+        "super_state": TensorSpec((n_super, per) + state, f32),
+    }
+    if tail:
+        tree["tail_conv"] = TensorSpec((tail,) + conv, dtype)
+        tree["tail_state"] = TensorSpec((tail,) + state, f32)
+    return tree
+
+
+def init_cache(cfg: ArchConfig, B: int, S: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = None) -> dict:
+    device = resolve_device(device)
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in cache_shapes(cfg, B, S, dtype).items()}
+
+
+def decode_step(params: nn.Module, cfg: ArchConfig, cache: dict,
+                tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, dict]:
+    """One serve step: tokens (B, 1), pos an int (shared by the batch) ->
+    (logits (B, 1, V), the cache, updated in place)."""
+    if cfg.family == "ssm":
+        return tf.ssm_decode_step(params, cfg, cache, tokens, pos)
+    if cfg.family == "hybrid":
+        return tf.hybrid_decode_step(params, cfg, cache, tokens, pos)
+    raise tf._unported(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Batches
+# ---------------------------------------------------------------------------
+def make_batch(cfg: ArchConfig, cell: ShapeCell, rng: np.random.Generator,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A random batch of one cell, drawn with numpy: kind "train" gives
+    tokens and labels (B, L), "prefill" tokens (B, L), "decode" tokens
+    (B, 1) and pos."""
+    if cfg.family not in tf.FAMILIES:
+        raise tf._unported(cfg)
+    device = resolve_device(device)
+    B, L = cell.global_batch, cell.seq_len
+
+    def tok(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, size=shape,
+                                             dtype=np.int64)).to(device)
+
+    if cell.kind == "decode":
+        return {"tokens": tok((B, 1)),
+                "pos": torch.zeros((), dtype=torch.int64, device=device)}
+    out = {"tokens": tok((B, L))}
+    if cell.kind == "train":
+        out["labels"] = tok((B, L))
+    return out

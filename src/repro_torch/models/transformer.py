@@ -1,0 +1,307 @@
+"""Decoder-only model families of this slice: pure SSM (Mamba-2) and the
+Zamba-style hybrid, as the JAX package's ``models/transformer.py`` defines
+them.
+
+Parameters are declared with the JAX package's tree (:func:`decoder_pdefs`,
+stacked per layer) and held in ``nn.Module``s: each layer is a module of
+its own and the stacks are ``nn.ModuleList``s, walked by Python loops where
+the JAX package scans (:func:`build_model` unstacks a tree).  Parameters do
+not require gradients: training is not ported yet.  The dense, moe, vlm and
+audio families raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as ll
+from repro_torch.models.params import PDef, leaves
+from repro_torch.models.ssm import mamba_block, mamba_dims
+
+FAMILIES = ("ssm", "hybrid")
+
+
+def _unported(cfg: ArchConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {cfg.family!r} family ({cfg.arch_id}) is not ported yet; "
+        "this port runs the 'ssm' and 'hybrid' families (ROADMAP.md, "
+        "queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+def _attn_pdefs(cfg: ArchConfig, nl: int) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": PDef((nl, D, H, hd), "p_attn_qkv", stacked=1),
+        "wk": PDef((nl, D, KV, hd), "p_attn_qkv", stacked=1),
+        "wv": PDef((nl, D, KV, hd), "p_attn_qkv", stacked=1),
+        "wo": PDef((nl, H, hd, D), "p_attn_o", stacked=1,
+                   scale=1.0 / math.sqrt(H * hd)),
+    }
+
+
+def _mlp_pdefs(cfg: ArchConfig, nl: int, d_ff: int) -> dict:
+    D = cfg.d_model
+    return {
+        "w_in": PDef((nl, D, d_ff), "p_mlp_in", stacked=1),
+        "w_out": PDef((nl, d_ff, D), "p_mlp_out", stacked=1),
+        "w_gate": PDef((nl, D, d_ff), "p_mlp_in", stacked=1),
+    }
+
+
+def _mamba_pdefs(cfg: ArchConfig, stack: Tuple[int, ...]) -> dict:
+    D = cfg.d_model
+    d_inner, H, conv_dim = mamba_dims(D, cfg.ssm_expand, cfg.ssm_head_dim,
+                                      cfg.ssm_state)
+    proj = 2 * d_inner + 2 * cfg.ssm_state + H
+    ns = len(stack)
+    return {
+        "ln": PDef(stack + (D,), "p_norm", init="zeros", stacked=ns),
+        "w_in": PDef(stack + (D, proj), "p_ssm_in", stacked=ns),
+        "w_out": PDef(stack + (d_inner, D), "p_ssm_out", stacked=ns),
+        "conv_w": PDef(stack + (cfg.ssm_conv, conv_dim), "p_conv",
+                       stacked=ns, scale=0.5),
+        "dt_bias": PDef(stack + (H,), "p_ssm_small", init="zeros", stacked=ns),
+        "A_log": PDef(stack + (H,), "p_ssm_small", init="zeros", stacked=ns),
+        "D": PDef(stack + (H,), "p_ssm_small", init="ones", stacked=ns),
+    }
+
+
+def decoder_pdefs(cfg: ArchConfig) -> dict:
+    """The JAX package's parameter tree for the ssm and hybrid families."""
+    if cfg.family not in FAMILIES:
+        raise _unported(cfg)
+    D, V, nl = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+    p: dict = {
+        "embed": PDef((V, D), "p_embed", scale=0.02),
+        "unembed": PDef((V, D), "p_embed", scale=1.0 / math.sqrt(D)),
+        "final_norm": PDef((D,), "p_norm", init="zeros"),
+    }
+    if cfg.family == "ssm":
+        p["layers"] = _mamba_pdefs(cfg, (nl,))
+        return p
+    n_super = nl // cfg.attn_every
+    per = cfg.attn_every
+    tail = nl - n_super * per
+    p["shared_attn"] = {
+        "ln1": PDef((D,), "p_norm", init="zeros"),
+        "attn": {k: PDef(v.shape[1:], v.logical, scale=v.scale)
+                 for k, v in _attn_pdefs(cfg, 1).items()},
+        "ln2": PDef((D,), "p_norm", init="zeros"),
+        "mlp": {k: PDef(v.shape[1:], v.logical, scale=v.scale)
+                for k, v in _mlp_pdefs(cfg, 1, cfg.d_ff).items()},
+    }
+    p["mamba_super"] = _mamba_pdefs(cfg, (n_super, per))
+    if tail:
+        p["mamba_tail"] = _mamba_pdefs(cfg, (tail,))
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+class Params(nn.Module):
+    """A module whose parameters (and sub-modules) are read by name,
+    ``p["w_in"]``, as the layer functions read the JAX package's dicts."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for k, v in tensors.items():
+            if isinstance(v, dict):
+                self.add_module(k, Params(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+class Mamba2Layer(Params):
+    """One pre-norm Mamba-2 layer with its residual (``_mamba_apply``)."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict):
+        super().__init__(tensors)
+        self.cfg = cfg
+
+    def forward(self, x, cache: Optional[dict] = None):
+        return _mamba_apply(self.cfg, self, x, cache)
+
+
+class SharedAttentionBlock(Params):
+    """Zamba2's shared attention + MLP block (``_shared_attn_apply``)."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict):
+        super().__init__(tensors)
+        self.cfg = cfg
+
+    def forward(self, x, positions, cache=None, cache_pos=None,
+                kv_chunk: int = 1024):
+        return _shared_attn_apply(self.cfg, self, x, positions, cache,
+                                  cache_pos, kv_chunk)
+
+
+class Mamba2LM(nn.Module):
+    """The ``ssm`` family: embedding, Mamba-2 layers, final norm,
+    unembedding."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        for k in ("embed", "unembed", "final_norm"):
+            self.register_parameter(k, nn.Parameter(tree[k],
+                                                    requires_grad=False))
+        lay = tree["layers"]
+        self.layers = nn.ModuleList(
+            Mamba2Layer(cfg, {k: v[i] for k, v in lay.items()})
+            for i in range(cfg.n_layers))
+
+    def forward(self, tokens, last_only: bool = False):
+        return ssm_forward(self, self.cfg, tokens, last_only=last_only)
+
+
+class Zamba2LM(nn.Module):
+    """The ``hybrid`` family: the shared attention block before every
+    ``attn_every`` Mamba-2 layers, then a tail of Mamba-2 layers."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        for k in ("embed", "unembed", "final_norm"):
+            self.register_parameter(k, nn.Parameter(tree[k],
+                                                    requires_grad=False))
+        self.shared_attn = SharedAttentionBlock(cfg, tree["shared_attn"])
+        sup = tree["mamba_super"]
+        n_super = cfg.n_layers // cfg.attn_every
+        self.mamba_super = nn.ModuleList(
+            nn.ModuleList(Mamba2Layer(cfg, {k: v[s, j] for k, v in sup.items()})
+                          for j in range(cfg.attn_every))
+            for s in range(n_super))
+        tail = tree.get("mamba_tail", {})
+        n_tail = cfg.n_layers - n_super * cfg.attn_every
+        self.mamba_tail = nn.ModuleList(
+            Mamba2Layer(cfg, {k: v[i] for k, v in tail.items()})
+            for i in range(n_tail))
+
+    def forward(self, tokens, last_only: bool = False):
+        return hybrid_forward(self, self.cfg, tokens, last_only=last_only)
+
+
+def build_model(cfg: ArchConfig, tree: dict) -> nn.Module:
+    """The model holding ``tree`` (the JAX package's parameter tree, of
+    tensors), its stacked layers unstacked into ModuleLists as views.
+    Raises on a missing or extra key or a shape that differs from
+    :func:`decoder_pdefs`."""
+    want = dict(leaves(decoder_pdefs(cfg)))
+    got = dict(leaves(tree))
+    if set(got) != set(want):
+        missing = sorted(".".join(k) for k in set(want) - set(got))
+        extra = sorted(".".join(k) for k in set(got) - set(want))
+        raise KeyError(f"parameter tree of {cfg.arch_id}: missing {missing},"
+                       f" extra {extra}")
+    for path, d in want.items():
+        if tuple(got[path].shape) != tuple(d.shape):
+            raise ValueError(f"{'.'.join(path)}: shape "
+                             f"{tuple(got[path].shape)}, expected {d.shape}")
+    return (Mamba2LM if cfg.family == "ssm" else Zamba2LM)(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+def _zero():
+    return torch.zeros((), dtype=torch.float32)
+
+
+def ssm_forward(model: Mamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
+                remat: bool = True, last_only: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward; ``remat`` has no effect without gradients."""
+    x = ll.embed(model.embed, tokens)
+    for lp in model.layers:
+        x, _ = _mamba_apply(cfg, lp, x)
+    x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    return ll.unembed(model.unembed, x), _zero()
+
+
+def ssm_decode_step(model: Mamba2LM, cfg: ArchConfig, cache: dict,
+                    tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, dict]:
+    """One decode step; ``cache`` is updated in place and returned."""
+    x = ll.embed(model.embed, tokens)
+    for i, lp in enumerate(model.layers):
+        x, _ = _mamba_apply(cfg, lp, x, {"conv": cache["conv"][i],
+                                         "state": cache["state"][i]})
+    x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return ll.unembed(model.unembed, x), cache
+
+
+def _shared_attn_apply(cfg, sp, x, positions, cache=None, cache_pos=None,
+                       kv_chunk=1024):
+    h = ll.rmsnorm(x, sp["ln1"], cfg.norm_eps)
+    y, new_cache = ll.attention(
+        sp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+        cache_pos=cache_pos, kv_chunk=kv_chunk)
+    x = x + y
+    h = ll.rmsnorm(x, sp["ln2"], cfg.norm_eps)
+    return x + ll.swiglu(sp["mlp"], h), new_cache
+
+
+def _mamba_apply(cfg, lp, x, cache=None):
+    h = ll.rmsnorm(x, lp["ln"], cfg.norm_eps)
+    y, nc = mamba_block(lp, h, head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+                        expand=cfg.ssm_expand, conv_k=cfg.ssm_conv,
+                        cache=cache)
+    return x + y, nc
+
+
+def hybrid_forward(model: Zamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
+                   remat: bool = True, last_only: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward; ``remat`` has no effect without gradients."""
+    x = ll.embed(model.embed, tokens)
+    L = x.shape[1]
+    positions = torch.arange(L, device=x.device)
+    kv_chunk = 1024 if L >= 1024 else L
+    for blocks in model.mamba_super:
+        x, _ = _shared_attn_apply(cfg, model.shared_attn, x, positions,
+                                  kv_chunk=kv_chunk)
+        for lp in blocks:
+            x, _ = _mamba_apply(cfg, lp, x)
+    for lp in model.mamba_tail:
+        x, _ = _mamba_apply(cfg, lp, x)
+    x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    return ll.unembed(model.unembed, x), _zero()
+
+
+def hybrid_decode_step(model: Zamba2LM, cfg: ArchConfig, cache: dict,
+                       tokens: torch.Tensor, pos
+                       ) -> Tuple[torch.Tensor, dict]:
+    """One decode step; ``cache`` is updated in place and returned."""
+    x = ll.embed(model.embed, tokens)
+    pos = int(pos)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    for s, blocks in enumerate(model.mamba_super):
+        ck, cv = cache["attn_k"][s], cache["attn_v"][s]
+        x, _ = _shared_attn_apply(cfg, model.shared_attn, x, positions,
+                                  cache={"k": ck, "v": cv}, cache_pos=pos,
+                                  kv_chunk=min(2048, ck.shape[1]))
+        for j, lp in enumerate(blocks):
+            x, _ = _mamba_apply(cfg, lp, x,
+                                {"conv": cache["super_conv"][s, j],
+                                 "state": cache["super_state"][s, j]})
+    for i, lp in enumerate(model.mamba_tail):
+        x, _ = _mamba_apply(cfg, lp, x, {"conv": cache["tail_conv"][i],
+                                         "state": cache["tail_state"][i]})
+    x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return ll.unembed(model.unembed, x), cache

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-gather kernel (K1a, and K2 through it) and the densify kernel (K1b, and
-K2-mxu through it).
+gather kernel (K1a, and K2 through it), the densify kernel (K1b, and
+K2-mxu through it), flash attention (K3) and the SSD chunk scan (K4).
 
 Small shapes; every test needs a card and skips without one (decided in the
 ``cuda`` fixture, never at import).  Run on a machine with a card:
@@ -13,6 +13,8 @@ add float32 terms in orders that change from run to run (atomics on both
 sides), so they differ by rounding of the order of the terms, which for a
 row whose terms cancel is far larger than the result (see ``_terms``).
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -21,8 +23,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.formats import to_chunked
 from repro_torch.core.sem import SEMConfig, SEMSpMM
 from repro_torch.io.storage import TileStore
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import flash_attention as k3
 from repro_torch.kernels import sem_spmm
+from repro_torch.kernels import ssd_chunk as k4
 from repro_torch.kernels.ops import spmm_kernel
+from repro_torch.models import model_api
 from repro_torch.sparse.generate import rmat
 
 pytestmark = pytest.mark.gpu
@@ -214,10 +220,11 @@ def test_boundary_hook_on_card(cuda, stores):
 
 
 def test_build_reports_registers(cuda):
-    """Both sources build, one nvcc each, started together."""
+    """Every source builds, one nvcc each, started together."""
     from repro_torch.kernels._build import build_all
     infos = build_all()
-    assert set(infos) == {"sem_spmm", "sem_spmm_mxu"}
+    assert set(infos) == {"sem_spmm", "sem_spmm_mxu", "flash_attention",
+                          "ssd_chunk"}
     for info in infos.values():
         assert info.path.exists() and "registers" in info.ptxas
 
@@ -347,3 +354,114 @@ def test_mxu_kernel_is_graph_capturable(cuda, stores):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(acc, 2 * once)
+
+
+# -- K2 with a bfloat16 operand ---------------------------------------------
+@pytest.mark.parametrize("variant", ["gather", "mxu"])
+def test_one_shot_bf16(cuda, variant):
+    """Integer-valued operand: exact in bfloat16 and in every float32 sum,
+    so kernel and plain version agree bit for bit; a normal operand rounded
+    to bfloat16 stays within the reference's bfloat16 tolerance (0.25) of
+    the float32 product on the unrounded operand."""
+    g = rmat(11, 8, seed=3)
+    gv = g.with_values(np.random.default_rng(2).integers(
+        -3, 4, g.nnz).astype(np.float32))
+    ct = to_chunked(gv, T=256, C=64)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-4, 5, (g.n_cols, 4)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = spmm_kernel(ct, x, variant=variant, device=cuda)
+    assert got.dtype == torch.bfloat16
+    want = spmm_kernel(ct, x, variant=variant, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    xn = rng.standard_normal((g.n_cols, 4)).astype(np.float32)
+    got = spmm_kernel(ct, torch.from_numpy(xn).to(torch.bfloat16),
+                      variant=variant, device=cuda).double().cpu().numpy()
+    exact = spmm_kernel(ct, xn, variant=variant, device="cpu").double().numpy()
+    np.testing.assert_allclose(got, exact, rtol=0.25, atol=0.25)
+
+
+# -- K3: flash attention -----------------------------------------------------
+def _randn(gen, shape, cuda, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd,causal,softcap", [
+    (1, 256, 4, 4, 64, True, 0.0),
+    (2, 256, 8, 2, 64, True, 0.0),
+    (1, 512, 4, 1, 128, True, 0.0),
+    (1, 128, 2, 2, 32, True, 0.0),
+    (2, 128, 4, 2, 16, True, 0.0),       # reduced Zamba2-7B, G = 2
+    (1, 256, 2, 2, 64, False, 30.0),
+    (2, 2048, 32, 32, 112, True, 0.0),   # Zamba2-7B's prefill
+])
+def test_flash_kernel_matches_plain(cuda, B, L, H, KV, hd, causal, softcap):
+    """Float32 at the reference's tolerance (2e-4), one launch a call."""
+    gen = torch.Generator(cuda).manual_seed(L + H + hd)
+    q = _randn(gen, (B, L, H, hd), cuda)
+    k, v = (_randn(gen, (B, L, KV, hd), cuda) for _ in range(2))
+    before = k3.LAUNCHES["flash_attention"]
+    blocks = dict(Bq=min(256, L), Bk=min(256, L))
+    got = k3.flash_attention(q, k, v, causal=causal, softcap=softcap,
+                             **blocks)
+    assert k3.LAUNCHES["flash_attention"] - before == 1
+    want = k3.flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
+                                    **blocks)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_kernel_bf16(cuda):
+    gen = torch.Generator(cuda).manual_seed(0)
+    q, k, v = (_randn(gen, (1, 256, 4, 64), cuda, torch.bfloat16)
+               for _ in range(3))
+    got = k3.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = k3.flash_attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+
+
+# -- K4: the SSD chunk scan --------------------------------------------------
+@pytest.mark.parametrize("B,L,H,dh,N,Q", [
+    (1, 256, 2, 32, 16, 128),
+    (2, 256, 4, 64, 32, 128),
+    (1, 512, 2, 64, 64, 256),
+    (1, 128, 1, 16, 8, 128),
+    (2, 128, 16, 8, 16, 128),        # reduced Zamba2-7B
+    (2, 2048, 112, 64, 64, 256),     # Zamba2-7B's prefill
+    (2, 2048, 24, 64, 128, 256),     # Mamba2-130M's prefill
+])
+def test_ssd_kernel_matches_plain(cuda, B, L, H, dh, N, Q):
+    """Float32 at the reference's tolerance (2e-4), one launch a call."""
+    gen = torch.Generator(cuda).manual_seed(L + H + N)
+    x = _randn(gen, (B, L, H, dh), cuda)
+    dt = torch.rand((B, L, H), generator=gen, device=cuda) * 0.099 + 0.001
+    A = -(torch.rand((H,), generator=gen, device=cuda) * 1.5 + 0.5)
+    Bm, Cm = (_randn(gen, (B, L, N), cuda) for _ in range(2))
+    D = _randn(gen, (H,), cuda)
+    before = k4.LAUNCHES["ssd_chunked"]
+    y, s = k4.ssd_chunked(x, dt, A, Bm, Cm, D, Q=Q)
+    assert k4.LAUNCHES["ssd_chunked"] - before == 1
+    y_p, s_p = k4.ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=Q)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch,k3_calls,k4_calls", [
+    ("zamba2-7b", 2, 13), ("mamba2-130m", 0, 4)])
+def test_reduced_model_on_card_matches_cpu(cuda, arch, k3_calls, k4_calls):
+    """The reduced models' forward (B = 2, L = 128) on the card through the
+    kernels against the same weights on the CPU (the plain versions), at
+    the forward tolerance of tests/test_torch_models.py (2e-4)."""
+    cfg = get_config(arch).reduced()
+    cpu = model_api.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 128)))
+    k3.reset_launches()
+    k4.reset_launches()
+    got, _ = model_api.forward(card, cfg, {"tokens": toks.to(cuda)})
+    assert k3.LAUNCHES["flash_attention"] == k3_calls
+    assert k4.LAUNCHES["ssd_chunked"] == k4_calls
+    want, _ = model_api.forward(cpu, cfg, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

@@ -212,6 +212,30 @@ def test_one_shot_plain_matches_reference(small_int, small_valued, Tc, Cc, p):
             np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("variant", ["gather", "mxu"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 5e-4),
+                                        (torch.bfloat16, 0.25)])
+def test_one_shot_dtype_sweep(small_valued, variant, dtype, atol):
+    """K2 in both variants keeps a bfloat16 operand's dtype, as the
+    reference's ``spmm_pallas`` does, within the tolerance of
+    ``tests/test_kernels.py::test_kernel_dtype_sweep`` of the float64
+    oracle on the unrounded operand."""
+    ct = ref_to_chunked(small_valued, T=256, C=64)
+    port_ct = chunked_from_arrays(ct.n_rows, ct.n_cols, ct.T, ct.C, ct.meta,
+                                  ct.row_local, ct.col_local, ct.vals)
+    x = np.random.default_rng(0).standard_normal(
+        (small_valued.n_cols, 4)).astype(np.float32)
+    out = spmm_kernel(port_ct, torch.from_numpy(x).to(dtype),
+                      variant=variant, device="cpu")
+    assert out.dtype == dtype
+    x_pad = np.zeros((ct.padded_cols, 4), np.float64)
+    x_pad[: x.shape[0]] = x
+    ref = spmm_ref(ct.meta, ct.row_local, ct.col_local, ct.vals, x_pad,
+                   ct.T)[: ct.n_rows]
+    np.testing.assert_allclose(out.double().numpy(), ref, atol=atol,
+                               rtol=atol)
+
+
 def test_ops_entry_points_match_reference(small_int):
     """``spmm_kernel`` / ``spmm_kernel_batch`` (the engine step, in place)
     against ``spmm_pallas`` / ``spmm_pallas_batch``."""

@@ -16,12 +16,16 @@ from repro.core.formats import to_chunked as ref_to_chunked
 from repro.io.storage import TileStore as RefTileStore
 from repro_torch.apps.common import IMOperator, SEMOperator
 from repro_torch.apps.pagerank import pagerank
-from repro_torch.convert import chunked_from_arrays, coo_from_arrays
+from repro_torch.convert import (chunked_from_arrays, coo_from_arrays,
+                                 params_from_jax)
 from repro_torch.core.formats import to_chunked
 from repro_torch.core.sem import SEMSpMM
 from repro_torch.core.spmm import spmm
 from repro_torch.io.storage import TileStore
+from repro_torch.configs.base import SHAPES, get_config
 from repro_torch.kernels.ops import spmm_kernel, spmm_kernel_batch
+from repro_torch.launch.serve import BatchServer
+from repro_torch.models import model_api
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -38,13 +42,21 @@ def test_importing_every_module_leaves_jax_and_repro_out():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
+        "print(' '.join(sorted(k for k in sys.modules "
+        "if k.startswith('repro_torch'))))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15   # every module was imported
+    imported = set(proc.stdout.split())
+    # every module was imported, the model slice's subpackages included
+    want = {".".join(("repro_torch",) + tuple(
+        part for part in p.relative_to(PORT).with_suffix("").parts
+        if part != "__init__")) for p in PORT.rglob("*.py")}
+    assert want <= imported, sorted(want - imported)
+    for sub in ("configs", "models", "launch"):
+        assert any(m.startswith(f"repro_torch.{sub}.") for m in imported), sub
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -76,6 +88,10 @@ def test_entry_points_raise_without_a_card(small, monkeypatch):
     """No card and no ``device="cpu"``: every entry point raises instead
     of moving to the CPU quietly; with ``device="cpu"`` each runs."""
     ct, path = small
+    cfg = get_config("mamba2-130m").reduced()
+    tree = {k: v for k, v in model_api.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu").state_dict().items()}
+    tree = _stack(cfg, tree)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.ones((ct.n_cols, 2), np.float32)
     batch = TileStore.open(path).read_batch_raw(0, 4)
@@ -93,11 +109,29 @@ def test_entry_points_raise_without_a_card(small, monkeypatch):
             T=ct.T, **d),
         "pagerank": lambda **d: pagerank(
             IMOperator(ct, device="cpu"), mask, max_iter=1, **d),
+        "init_params": lambda **d: model_api.init_params(
+            cfg, torch.Generator().manual_seed(0), **d),
+        "init_cache": lambda **d: model_api.init_cache(cfg, 2, 8, **d),
+        "make_batch": lambda **d: model_api.make_batch(
+            cfg, SHAPES["decode_32k"], np.random.default_rng(0), **d),
+        "params_from_jax": lambda **d: params_from_jax(cfg, tree, **d),
+        "BatchServer": lambda **d: BatchServer(cfg, slots=1, max_seq=4, **d),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
         call(device="cpu")
+
+
+def _stack(cfg, flat):
+    """A Mamba2LM's state dict as the reference's tree of numpy arrays
+    (layers stacked)."""
+    tree = {k: flat[k].numpy() for k in ("embed", "unembed", "final_norm")}
+    names = {k.split(".", 2)[2] for k in flat if k.startswith("layers.")}
+    tree["layers"] = {n: np.stack([flat[f"layers.{i}.{n}"].numpy()
+                                   for i in range(cfg.n_layers)])
+                      for n in names}
+    return tree
 
 
 def _files(path):

@@ -1,0 +1,141 @@
+"""The port's SSD chunked scan (K4) on the CPU: its plain version against the
+JAX package's Pallas kernel in interpret mode and the reference's jnp scan,
+chunk invariance, the hand-off of the final state to the decode step, and
+the port's ``models/ssm.py::ssd_chunked`` with a carried-in state.
+
+Tolerance is the reference's own (``tests/test_ssd_kernel.py``):
+``rtol = atol = 2e-4``, ``1e-4`` for chunk invariance and ``2e-3`` for the
+prefill-to-decode hand-off.  Both sides work in float32 and sum in other
+orders.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.kernels.ssd_chunk import ssd_chunked_tpu
+from repro.models import ssm as ref_ssm
+from repro_torch.kernels import ssd_chunk as k4
+from repro_torch.models import ssm
+
+TOL = 2e-4
+
+
+def _inputs(B, L, H, dh, N, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, L, H, dh)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (B, L, H)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (H,)).astype(np.float32),
+            rng.standard_normal((B, L, N)).astype(np.float32),
+            rng.standard_normal((B, L, N)).astype(np.float32),
+            rng.standard_normal((H,)).astype(np.float32))
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("B,L,H,dh,N,Q", [
+    (1, 256, 2, 32, 16, 128),
+    (2, 256, 4, 64, 32, 128),
+    (1, 512, 2, 64, 64, 256),
+    (1, 128, 1, 16, 8, 128),   # single chunk
+    (1, 256, 2, 64, 128, 128),  # Mamba2-130M's state size and head dim
+])
+def test_plain_matches_pallas_and_jnp(B, L, H, dh, N, Q):
+    ins = _inputs(B, L, H, dh, N, seed=L + H + N)
+    k4.reset_launches()
+    y, s = k4.ssd_chunked(*_t(ins), Q=Q)
+    assert k4.LAUNCHES["ssd_chunked"] == 0           # plain on the CPU
+    y_k, s_k = ssd_chunked_tpu(*_j(ins), Q=Q)
+    y_r, s_r = ref_ssm.ssd_chunked(*_j(ins), chunk=Q)
+    for want_y, want_s in ((y_k, s_k), (y_r, s_r)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=TOL,
+                                   atol=TOL)
+
+
+def test_chunk_invariance():
+    """The recurrence result must not depend on the chunk size."""
+    ins = _t(_inputs(1, 512, 2, 32, 16, seed=3))
+    y1, s1 = k4.ssd_chunked(*ins, Q=128)
+    y2, s2 = k4.ssd_chunked(*ins, Q=256)
+    np.testing.assert_allclose(y1.numpy(), y2.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(s1.numpy(), s2.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_state_feeds_decode():
+    """The final state continues through the port's recurrent decode step
+    as a longer scan does, and as the reference's decode step does."""
+    x, dt, A, Bm, Cm, D = _inputs(1, 256, 2, 32, 16, seed=5)
+    ext = [np.concatenate([a, a[:, :1]], 1) for a in (x, dt, Bm, Cm)]
+    y_all, _ = k4.ssd_scan(*_t([ext[0], ext[1], A, ext[2], ext[3], D]),
+                           Q=128)
+    _, s = k4.ssd_chunked(*_t([x, dt, A, Bm, Cm, D]), Q=128)
+    first = [torch.from_numpy(a[:, 0]) for a in (x, dt, Bm, Cm)]
+    y_next, s_next = ssm.ssd_decode_step(first[0], first[1],
+                                         torch.from_numpy(A), first[2],
+                                         first[3], torch.from_numpy(D), s)
+    np.testing.assert_allclose(y_next.numpy(), y_all[:, -1].numpy(),
+                               rtol=2e-3, atol=2e-3)
+    y_ref, s_ref = ref_ssm.ssd_decode_step(
+        *_j([x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], D]),
+        jnp.asarray(s.numpy()))
+    np.testing.assert_allclose(y_next.numpy(), np.asarray(y_ref), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(s_next.numpy(), np.asarray(s_ref), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("L", [256, 100])
+def test_model_scan_with_init_state(L):
+    """A carried-in state (and, at L = 100, a padded last chunk) takes the
+    plain scan on both sides."""
+    ins = _inputs(2, L, 3, 16, 8, seed=L)
+    s0 = np.random.default_rng(9).standard_normal((2, 3, 16, 8)).astype(
+        np.float32)
+    y, s = ssm.ssd_chunked(*_t(ins), chunk=64,
+                           init_state=torch.from_numpy(s0))
+    y_r, s_r = ref_ssm.ssd_chunked(*_j(ins), chunk=64,
+                                   init_state=jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+def test_model_scan_dispatch_matches_reference(impl):
+    """Under the kernel's conditions the port's ``ssd_chunked`` takes K4 at
+    the reference's Q (256 here, from chunk = 256 at L = 512), against the
+    reference's jnp scan and its Pallas kernel."""
+    ins = _inputs(2, 512, 4, 8, 16, seed=11)
+    prev = ref_ssm.set_ssd_impl(impl)
+    try:
+        y_r, s_r = ref_ssm.ssd_chunked(*_j(ins))
+    finally:
+        ref_ssm.set_ssd_impl(prev)
+    y, s = ssm.ssd_chunked(*_t(ins))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=TOL, atol=TOL)
+
+
+def test_segsum_and_validation():
+    a = np.random.default_rng(2).uniform(-1, 0, (3, 16)).astype(np.float32)
+    got = ssm._segsum(torch.from_numpy(a)).numpy()
+    want = np.asarray(ref_ssm._segsum(jnp.asarray(a)))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+    x, dt, A, Bm, Cm, D = _t(_inputs(1, 256, 2, 8, 4))
+    with pytest.raises(ValueError, match="multiple of Q"):
+        k4.ssd_chunked(x, dt, A, Bm, Cm, D, Q=100)
+    with pytest.raises(ValueError, match="float32"):
+        k4.ssd_chunked(x, dt.double(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="unknown SSD"):
+        ssm.set_ssd_impl("pallas")
