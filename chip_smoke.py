@@ -22,16 +22,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    batches of the real stores, p = 8): bit for bit on integer-valued data,
    to 1e-5 on normal data; times from CUDA events;
 4b. densify kernels: the same for the densify kernel (K1b) and its one-shot
-   use (K2 mxu) on the densify cell's stores at p = 16;
-4c. crossover: K1a and K1b on one 256-chunk batch at T in {256 .. 4096} and
-   p in {1, 8, 16}, the table ``kernels/ops.py::pick_variant`` follows;
+   use (K2 mxu) on the densify cell's stores at p = 16, with their times
+   before the kernel's redesign beside the new ones;
+4c. crossover: K1a and K1b on one 256-chunk batch at T in {256 .. 16384}
+   (C = 256) and on a batch of the main path's store (T = 16384, C = 2048),
+   p in {1, 8, 16}: the table ``kernels/ops.py::pick_variant`` follows;
 5. engine: ``SEMSpMM.multiply`` (p = 8, integer operand) on the raw and the
-   optimized binary store, equal to a float64 scipy product, with the exact
-   IOStats counts and one kernel launch per batch; a third pass of each runs
-   under ``torch.profiler`` for the kernel's summed device time and the
-   card's idle share;
+   optimized binary store with the kernel ``pick_variant`` picks, equal to a
+   float64 scipy product, with the exact IOStats counts and one kernel
+   launch per batch; a third pass of each runs under ``torch.profiler`` for
+   the kernel's summed device time and the card's idle share;
 6. PageRank: 30 iterations over the SEM operator (K1a) and over the IM
-   operator (K2), against a float64 scipy power iteration;
+   operator (K2), both with the gather kernel named, against a float64
+   scipy power iteration;
 7. NMF (k = 16, 3 iterations): over SEM stores of A and Aᵀ against IM, at
    ``--scale`` with the gather kernel, and on the densify cell's stores with
    the densify kernel (SEM: K1b, IM: K2 mxu) against the gather kernel;
@@ -84,11 +87,14 @@ T, C, BATCH, P = 16384, 2048, 256, 8
 TM, CM, PM = 2048, 256, 16      # the densify cell: tile, chunk, operand width
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12       # H100 SXM, TF32 on the tensor cores, dense
+# The densify kernel's times before its redesign (PERF.md section 6, the
+# kernel table's "before" times; NVIDIA H100 80GB HBM3 at 700 W): K1b per
+# 256-chunk batch of the densify cell, K2 mxu over its whole matrix.
+BEFORE_MS = {"K1b": 0.13048640251159668, "K2 mxu": 55.707275390625}
 # Kernel vs plain on non-integer data, relative to the terms' magnitude:
 # see check_float.
 FLOAT_TOL = 1e-5
-CROSS_T, CROSS_P = (256, 512, 1024, 2048, 4096), (1, 8, 16)
+CROSS_T, CROSS_P = (256, 512, 1024, 2048, 4096, 8192, 16384), (1, 8, 16)
 CROSS_ROWS = 1 << 16            # the crossover batches' leading row block
 NMF_K, NMF_ITERS = 16, 3
 # NMF SEM vs IM and densify vs gather: the reference's own test tolerance
@@ -449,13 +455,28 @@ def time_batch(variant, meta, nv, rows, cols, vals, x_pad, acc0, diff,
     library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x_pad), reps=20)
     bound_ms, bound_by = batch_bound(meta, nv, rows, cols, vals, p, T_)
     if variant == "mxu":
-        # the route's own tensor-core work: two products, two TF32 terms
-        n16 = int(((m[:, 3].clamp(max=C_) + 15) // 16 * 16).sum())
-        route_ms = 1e3 * 2 * 2 * 2 * n16 * T_ * p / TF32_FLOPS_PER_S
-        log(f"{label} densify work: {n16} live lanes (rounded to 16) x T x p"
-            f" x 8 flops = {route_ms} ms at 495 TF32 TFLOP/s")
+        log(f"{label} work: " + densify_work(m, r, live, p, T_))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_diff=diff)
+
+
+def densify_work(m, r, live, p, T_):
+    """What the densify kernel does for the valid chunks ``m`` (meta as
+    int64) with decoded rows ``r``: X bytes gathered and reductions (one per
+    run of a row's lanes and 4 columns, plus the +0.0 sweep of each visited
+    tile row once), against what its design before the redesign did (the
+    whole X[tile_col] staged and T*p scalar atomics a chunk)."""
+    n_live = int(live.sum())
+    opens = live.clone()
+    opens[:, 1:] &= r[:, 1:] != r[:, :-1]
+    runs = int(opens.sum())
+    tile_rows = int(torch.unique(m[:, 0]).numel())
+    n = m.shape[0]
+    reds = runs * -(-p // 4) + tile_rows * T_ * p // 4
+    return (f"{n} chunks, {n_live} live lanes, {runs} row runs, "
+            f"{tile_rows} tile rows; {4 * p * n_live} B of X gathered "
+            f"(before: {4 * p * T_ * n} B staged), {reds} reductions "
+            f"(before: {n * T_ * p} scalar atomics)")
 
 
 def run_k2(ct, rng, dev, variant="gather", T_=T, p=P, reps=10,
@@ -571,14 +592,21 @@ def run_mxu_phase(cell, rng, dev):
     records = {"K1b": time_batch("mxu", *timed, worst, T_=TM, label="K1b")}
     records["K2 mxu"] = run_k2(cell["ct_at"], rng, dev, "mxu", TM, PM,
                                reps=3, plain_reps=1, label="K2 mxu")
+    for key, r in records.items():
+        log(f"{key}: {r['ms']} ms (before the redesign: {BEFORE_MS[key]} ms,"
+            f" {BEFORE_MS[key] / r['ms']:.2f}x), torch.sparse.mm "
+            f"{r['library_ms']} ms ({r['ms'] / r['library_ms']:.3f}x its "
+            f"time), bound {r['bound_ms']} ms ({r['ms'] / r['bound_ms']:.1f}x"
+            f" the bound)")
     return records
 
 
 # -- phase 4c: where the densify kernel beats the gather kernel --------------
-def run_crossover_phase(cell, rng, dev, card):
+def run_crossover_phase(cell, stores, rng, dev, card):
     """K1a and K1b on one 256-chunk batch (the middle one) of the densify
-    cell's graph, rows [0, CROSS_ROWS), chunked at each T with C = 256;
-    device time from graph replay.  Returns the table's rows."""
+    cell's graph, rows [0, CROSS_ROWS), chunked at each T with C = 256, and
+    on the middle batch of the main path's binary store (T = 16384,
+    C = 2048); device time from graph replay.  Returns the table's rows."""
     from repro_torch.core.formats import COO, to_chunked
     from repro_torch.kernels import sem_spmm
     op = cell["pr_op"]
@@ -586,34 +614,52 @@ def run_crossover_phase(cell, rng, dev, card):
     block = COO(CROSS_ROWS, op.n_cols, op.rows[keep], op.cols[keep], None)
     log(f"crossover: rows [0, {CROSS_ROWS}) of the scale-{cell['scale']} "
         f"PageRank pattern, {block.nnz} entries, C = {CM}, middle 256-chunk "
-        f"batch at each T [{card}]")
-    rows_out = []
-    for T_ in CROSS_T:
+        f"batch at each T; then the main path's store [{card}]")
+
+    def cell_batch(T_):
         ct = to_chunked(block, T=T_, C=CM)
         s = (ct.n_chunks // 2 // BATCH) * BATCH
         n = min(BATCH, ct.n_chunks - s)
-        meta = torch.from_numpy(ct.meta[s:s + n]).to(dev)
         # as the SEM path ships them: uint16 lanes as int16 bits
-        rows = torch.from_numpy(ct.row_local[s:s + n].astype(np.int16)).to(dev)
-        cols = torch.from_numpy(ct.col_local[s:s + n].astype(np.int16)).to(dev)
+        return (T_, CM, ct.n_tile_rows, block.n_cols,
+                ct.meta[s:s + n], ct.row_local[s:s + n].astype(np.int16),
+                ct.col_local[s:s + n].astype(np.int16))
+
+    def main_batch():
+        st = stores["bin"]
+        h = st.header
+        s = (st.n_chunks // 2 // BATCH) * BATCH
+        meta, rows, cols, _ = st.read_batch_raw(s, min(BATCH,
+                                                       st.n_chunks - s))
+        return (T, C, -(-h["n_rows"] // T), h["n_cols"], np.array(meta),
+                np.array(rows).view(np.int16), np.array(cols).view(np.int16))
+
+    rows_out = []
+    for T_, C_, ntr, n_cols, meta, rows, cols in (
+            *(cell_batch(T_) for T_ in CROSS_T), main_batch()):
+        n = meta.shape[0]
+        fill = float(meta[:, 3].sum()) / (n * C_)
+        meta = torch.from_numpy(meta).to(dev)
+        rows = torch.from_numpy(rows).to(dev)
+        cols = torch.from_numpy(cols).to(dev)
         nv = torch.tensor([n], dtype=torch.int32, device=dev)
-        fill = float(ct.meta[s:s + n, 3].sum()) / (n * CM)
         for p in CROSS_P:
-            x_pad = operand(block.n_cols, p, rng, True, dev, T_)
-            acc = torch.zeros((ct.n_tile_rows * T_, p), device=dev)
+            x_pad = operand(n_cols, p, rng, True, dev, T_)
+            acc = torch.zeros((ntr * T_, p), device=dev)
             outs = []
             for v in sem_spmm.VARIANTS:
                 out = acc.clone()
                 sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, None, x_pad,
                                         out, T=T_, variant=v)
                 outs.append(out)
-            check(torch.equal(*outs), f"crossover T={T_} p={p}: the two "
-                  "kernels agree bit for bit")
+            check(torch.equal(*outs), f"crossover T={T_} C={C_} p={p}: the "
+                  "two kernels agree bit for bit")
             ms = [graph_ms(lambda v=v: sem_spmm.spmm_tiles_acc(
                 meta, nv, rows, cols, None, x_pad, acc, T=T_, variant=v),
                 reps=20) for v in sem_spmm.VARIANTS]
-            rows_out.append((T_, p, fill, *ms))
-            log(f"crossover T={T_} p={p} fill {fill:.4f}: K1a {ms[0]} ms, "
+            rows_out.append((T_, C_, p, fill, *ms))
+            log(f"crossover T={T_} C={C_} p={p} fill {fill:.4f}: K1a "
+                f"{ms[0]} ms, "
                 f"K1b {ms[1]} ms, K1b/K1a {ms[1] / ms[0]:.3f}, "
                 f"{'densify' if ms[1] < ms[0] else 'gather'} wins")
     return rows_out
@@ -647,6 +693,10 @@ def run_engine_phase(stores, pr_op, rng, dev, card):
     import scipy.sparse as sp
     from repro_torch.core.sem import SEMConfig, SEMSpMM
     from repro_torch.kernels import sem_spmm
+    from repro_torch.kernels.ops import pick_variant
+    variant = pick_variant(T)
+    key = "spmm_tiles_acc" + ("_mxu" if variant == "mxu" else "")
+    kernel_name = f"chunk_{variant}_kernel"
     x = rng.integers(-4, 5, (pr_op.n_cols, P)).astype(np.float32)
     a = sp.csr_matrix((np.ones(pr_op.nnz), (pr_op.rows, pr_op.cols)),
                       shape=(pr_op.n_rows, pr_op.n_cols))
@@ -664,7 +714,7 @@ def run_engine_phase(stores, pr_op, rng, dev, card):
                 t0 = time.perf_counter()
                 got = sem.multiply(x)
                 secs = time.perf_counter() - t0
-            launches = sem_spmm.LAUNCHES["spmm_tiles_acc"]
+            launches = sem_spmm.LAUNCHES[key]
             st = store.stats
             check(np.array_equal(got, want.astype(np.float32)),
                   f"engine {name}: equal to scipy")
@@ -676,7 +726,7 @@ def run_engine_phase(stores, pr_op, rng, dev, card):
                   == sem.n_batches - 1, f"engine {name}: overlap_batches")
             check(launches == sem.n_batches,
                   f"engine {name}: one launch per batch")
-            log(f"engine {name} pass {rep}: equal to scipy; "
+            log(f"engine {name} pass {rep} ({variant}): equal to scipy; "
                 f"{sem.n_batches} batches = {launches} launches; "
                 f"bytes_read {st.bytes_read - before.bytes_read}, "
                 f"h2d {st.h2d_bytes - before.h2d_bytes}, overlap "
@@ -684,11 +734,12 @@ def run_engine_phase(stores, pr_op, rng, dev, card):
                 f"{secs:.3f} s/pass, {pr_op.nnz / secs:.4g} edges/s"
                 f"{' (traced)' if traced else ''} [{card}]")
             if traced:
-                log(f"engine {name} trace: " + device_time(prof, secs, warm))
+                log(f"engine {name} trace: "
+                    + device_time(prof, secs, warm, kernel_name))
             warm = secs
 
 
-def device_time(prof, secs: float, warm: float) -> str:
+def device_time(prof, secs: float, warm: float, kernel_name: str) -> str:
     """What a torch.profiler trace of one pass shows of the card: the
     kernel's summed device time, the copies', and the union of all device
     activity against the pass's wall time (traced, and the untraced warm
@@ -698,8 +749,8 @@ def device_time(prof, secs: float, warm: float) -> str:
     if not spans:
         return "no device activity recorded: idle share not measured"
     kernel_us = sum(e.time_range.elapsed_us() for e in spans
-                    if "chunk_gather_kernel" in e.name)
-    n_kernel = sum("chunk_gather_kernel" in e.name for e in spans)
+                    if kernel_name in e.name)
+    n_kernel = sum(kernel_name in e.name for e in spans)
     copies = {}
     for e in spans:
         if e.name.startswith("Memcpy"):
@@ -736,15 +787,18 @@ def pagerank_f64(pr_op, dangling, iters: int, damping: float = 0.85):
 def run_pagerank_phase(stores, ct, adj, pr_op, dev, card):
     from repro_torch.apps.common import IMOperator, SEMOperator
     from repro_torch.apps.pagerank import dangling_vertices, pagerank
+    from repro_torch.core.sem import SEMConfig
     from repro_torch.kernels import sem_spmm
     iters = 30
     dangling = dangling_vertices(adj)
     ref = pagerank_f64(pr_op, dangling, iters)
     launches = {}
     for label, make, kernel in (
-            ("SEM", lambda: SEMOperator(stores["val"], device=dev),
-             "spmm_tiles_acc"),
-            ("IM", lambda: IMOperator(ct, device=dev), "spmm_tiles")):
+            ("SEM", lambda: SEMOperator(
+                stores["val"], SEMConfig(kernel_variant="gather"),
+                device=dev), "spmm_tiles_acc"),
+            ("IM", lambda: IMOperator(ct, device=dev, variant="gather"),
+             "spmm_tiles")):
         op = make()
         sem_spmm.reset_launches()
         t0 = time.perf_counter()
@@ -830,8 +884,8 @@ def run_nmf_phase(scale, adj, ct, stores, wide, cell, dev, card):
                               sem_at, a_sq, card)
     check(n["spmm_tiles_acc"] == batches,
           "NMF SEM: one gather launch per batch")
-    im = IMOperator(wide["ct_a"], device=dev), IMOperator(
-        binary_tiles(ct), device=dev)
+    im = IMOperator(wide["ct_a"], device=dev, variant="gather"), IMOperator(
+        binary_tiles(ct), device=dev, variant="gather")
     res_im, _, _ = nmf_run(f"scale {scale} IM gather", *im, a_sq,
                            card)
     check(close_factors(sem, res_im), "NMF SEM equals IM within "
@@ -1439,7 +1493,8 @@ def main() -> int:
         records = phase("kernels", run_kernel_phase, stores, ct, rng, dev)
         records.update(phase("densify kernels", run_mxu_phase, cell, rng,
                              dev))
-        phase("crossover", run_crossover_phase, cell, rng, dev, card)
+        phase("crossover", run_crossover_phase, cell, stores, rng, dev,
+              card)
         phase("engine", run_engine_phase, stores, pr_op, rng, dev, card)
         launches = phase("pagerank", run_pagerank_phase, stores, ct, adj,
                          pr_op, dev, card)

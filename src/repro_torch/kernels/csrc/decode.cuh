@@ -8,7 +8,7 @@
 //     k = meta[g,4]*T + meta[g,5] + inclusive_cumsum(rows << 8 | cols),
 //     r = k / T, c = k - r*T, for every lane i < C, lanes >= nnz set to 0.
 //     The cumsum is a block scan: each thread sums a contiguous run of
-//     lanes, a shared-memory scan of the run sums gives every run its
+//     lanes, block_exclusive_scan of the run sums gives every run its
 //     starting key, and the thread walks its run again.  Keys are 64-bit;
 //     the reference's int32 keys agree while meta[g,4]*T + T*T < 2**31.
 
@@ -46,28 +46,50 @@ inline cudaError_t write_bf16(const void* acc, void* out, long long n,
   return cudaGetLastError();
 }
 
+// Exclusive prefix sum over the block of one value per thread: a warp
+// scan by shuffles, then the warps' sums through shared memory.  Every
+// thread of the block calls it (kThreads a multiple of 32); *total gets
+// the block's sum.  Integer sums are exact in any order.
+template <int kThreads, typename V>
+__device__ __forceinline__ V block_exclusive_scan(V x, V* total) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ V warp_sum[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  V incl = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const V y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  V before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const V s = warp_sum[w];
+    before += w < warp ? s : V(0);
+    all += s;
+  }
+  __syncthreads();  // warp_sum is free for the next scan
+  *total = all;
+  return before + incl - x;
+}
+
 template <int kThreads, typename RowT, typename ColT>
 __device__ __forceinline__ void decode_lanes(const int32_t* m, const RowT* rg,
                                              const ColT* cg, int C, int T,
                                              int nnz, int* r_s, int* c_s) {
   if constexpr (sizeof(ColT) == 1) {
-    __shared__ long long run_sum[kThreads];
     const int per = (C + kThreads - 1) / kThreads;
     const int lo = min(static_cast<int>(threadIdx.x) * per, C);
     const int hi = min(lo + per, C);
     long long s = 0;
     for (int i = lo; i < hi; ++i)
       s += (static_cast<long long>(rg[i]) << 8) | static_cast<long long>(cg[i]);
-    run_sum[threadIdx.x] = s;
-    __syncthreads();
-    for (int off = 1; off < kThreads; off <<= 1) {
-      const long long add = threadIdx.x >= off ? run_sum[threadIdx.x - off] : 0;
-      __syncthreads();
-      run_sum[threadIdx.x] += add;
-      __syncthreads();
-    }
+    long long total;
     long long k = static_cast<long long>(m[4]) * T + m[5]
-                  + (threadIdx.x ? run_sum[threadIdx.x - 1] : 0);
+                  + block_exclusive_scan<kThreads>(s, &total);
     for (int i = lo; i < hi; ++i) {
       k += (static_cast<long long>(rg[i]) << 8) | static_cast<long long>(cg[i]);
       const long long r = k / T;

@@ -1,5 +1,5 @@
 // Chunk-batch densify kernel of the semi-external SpMM pass, for sm_90a:
-// each chunk's block is two one-hot matrix products on the tensor cores.
+// each chunk's two one-hot products, applied only where they have ones.
 //
 // Replaces the JAX package's Pallas kernel
 // repro/kernels/sem_spmm.py::spmm_tiles_acc, variant "mxu" (body
@@ -21,48 +21,68 @@
 //   Stored first flags (meta[:,2]) are ignored; tile rows outside the batch
 //   are never written.
 //
+// How the block computes it, so that a chunk costs its n live lanes and not
+// its whole T-row tile:
+//   1. Compress the rows.  The lanes are decoded into shared memory; a live
+//      lane whose row differs from the previous lane's opens a run, and a
+//      block scan of those flags (decode.cuh::block_exclusive_scan) gives
+//      each lane a compressed row id and the chunk R runs.  The writer sorts
+//      a tile's entries by (row, col), so a row is one run and 16
+//      consecutive compressed rows own one contiguous range of lanes; a row
+//      that does appear in two runs is merely reduced twice.
+//   2. E_c as a gather.  The X rows the live lanes name are copied into
+//      shared memory with cp.async, a slab of lanes and 8*NT columns at a
+//      time, two slabs in flight: 16-byte copies where a row's bytes allow
+//      them, 4-byte copies or plain loads where a ragged p or a bfloat16
+//      operand does not.  (No TMA: a tensor map moves boxes, not rows
+//      picked by index.)  S = v (.) X[c] is formed in float32 as the
+//      fragments are loaded: the gather is exact.
+//   3. E_r^T on the tensor cores, over the compressed rows only.  For each
+//      group of 16 compressed rows a warp builds the one-hot m16n8k8 A
+//      fragment in registers from the compressed ids and runs k over that
+//      group's lanes only: about (n/8 + R/16) k-steps a chunk, not
+//      (T/16)*(n/8).
+//   4. Write back only the rows that have entries: one red.global.add.v4.f32
+//      (atomicAdd on a float4, sm_90) per compressed row and 4 columns,
+//      scalar reductions for a ragged tail of columns or a misaligned
+//      accumulator: about n*p/4 reductions a chunk, not T*p.
+//   5. The +0.0 rule once per visited tile row and batch: the first
+//      kSweepSlices blocks of each run of one tile row's chunks in the batch
+//      (the first: g == 0 or meta[g-1,0] != meta[g,0], the reference's
+//      _in_batch_first) add +0.0 over the tile row's T*p entries, a slice
+//      each, with reductions, since other blocks add into the same rows at
+//      the same time.  A block finds its place in the run from its
+//      neighbours' tile rows, loaded by one warp lane each.  Adding +0.0
+//      commutes bit for bit with every other addition, so the order does
+//      not matter.  Tail pads return first and take no part.
+//
 // Bound on this card: the function is the same as the gather kernel's, so
 // its least time is the same bytes (the live lanes of the planes, the X
-// rows they name, the accumulator rows they update) over 3.35 TB/s.  The
-// densify route itself does 2*n*T*p flops per product, 4*n*T*p per chunk,
-// with n the chunk's live lanes rounded up to 16 (4*C*T*p for a full
-// chunk), twice over with the split below, at 495 TF32 TFLOP/s.  Which of
-// the two kernels is faster at a given T is measured on the card, not
-// assumed (kernels/ops.py::pick_variant).
+// rows they name, the accumulator rows they update) over 3.35 TB/s.
 //
-// Where the TPU design does not carry over, and what this design does:
-//   * No sequential grid.  The Pallas kernel keeps one tile row's (T, p)
-//     window in VMEM across that row's consecutive chunks.  Here blocks run
-//     in no order, so each block adds its chunk's block into the accumulator
-//     with atomics (red.global.add.f32).  A block per run of one tile row's
-//     chunks would avoid them, but a 256-chunk batch of a T = 2048 store
-//     covers one or two tile rows: that design would leave most SMs idle.
-//   * No VMEM-sized operands.  The one-hot matrices are never stored: their
-//     mma fragments are built in registers from the decoded indices in
-//     shared memory (a compare per element).  X[tile_col] is staged in
-//     shared memory in slabs of kTSlab rows and the (n, p) intermediate in
-//     slabs of kLaneSlab lanes, 8*NT columns at a time, so every T, C and p
-//     fits in a fixed footprint (C bounded only by the decoded indices,
-//     12 bytes a lane: C <= 13056).
-//   * Precision.  mma.sync m16n8k8 takes TF32 (10 mantissa bits).  The
-//     one-hot factors are exact in TF32; X and the scaled intermediate are
-//     split as hi = tf32(a), lo = tf32(a - hi) and each product is issued
-//     twice, accumulating in f32.  hi + lo keeps 22 significant bits of a,
-//     so the gathered value carries a relative error below 2**-21;
-//     integer-valued operands below 2**22 are exact, and so is every f32
-//     sum of integers below 2**24: on such data the kernel equals the
-//     reference bit for bit.
-//   * p need not be a multiple of 8 (the mma's n): the ragged columns are
-//     staged as zeros and never written back.
-//   * Live lanes only.  The lanes of a chunk past its nnz are all-zero rows
-//     of both one-hot matrices; the kernel rounds the live count up to 16
-//     (the mma's m) and skips the rest, so a chunk costs O(n*T*p), n its
-//     live lanes.  The route stays dense: every (lane, t) pair of the live
-//     rows goes through the tensor cores.
+// Precision.  mma.sync m16n8k8 takes TF32 (10 mantissa bits).  The one-hot
+// factor is exact in TF32; S is split as hi = tf32(s), lo = tf32(s - hi)
+// and each product is issued twice, accumulating in f32.  hi + lo keeps 22
+// significant bits of s, so a term carries a relative error below 2**-21;
+// integer-valued operands below 2**22 are exact, and so is every f32 sum of
+// integers below 2**24 in any order: on such data the kernel equals the
+// reference bit for bit.
+//
+// Block size.  A block is one chunk, and its warps are sized to the
+// launch: 4 warps (128 threads) while the launch's chunks all fit on the
+// card at once, as a 256-chunk SEM batch does, so that each chunk finishes
+// soonest; 1 warp past kManyChunks chunks (the one-shot product over a
+// whole matrix), so that four times as many chunks are in flight.  A slab
+// holds one lane per thread.  Shared memory is 16 bytes a lane (decoded
+// rows and columns, compressed ids, run starts) plus two slabs (25.6 KB at
+// 4 warps and p > 8, 6.4 KB at 1 warp).  ptxas gives the kernel 48 to 64
+// registers; at C = 256 and p = 16 shared memory bounds an SM to 7 blocks
+// of 4 warps or 20 of 1 warp.  Capping the registers for more 4-warp blocks
+// spilled a few words and measured no faster.
 //
 // X may be float32 or, in the one-shot product, bfloat16, widened to float32
-// as it is staged; the accumulator stays float32 and the entry point writes
-// the bfloat16 output once at the end (decode.cuh, write_bf16).
+// as it is consumed; the accumulator stays float32 and the entry point
+// writes the bfloat16 output once at the end (decode.cuh, write_bf16).
 //
 // The host entry point has a plain C interface, like the gather kernel's.
 
@@ -73,15 +93,19 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLaneSlab = 256;                 // lanes of S in shared memory
-constexpr int kTSlab = 128;                    // rows of X in shared memory
-constexpr int kGroupsPerWarp = kLaneSlab / 16 / kWarps;
+// A block is kWarps warps on one chunk, and a slab holds one lane per
+// thread (kLaneSlab = 32 * kWarps); the launch picks kWarps (see launch).
+constexpr int kWarpsFew = 4;      // a SEM batch: chunks' latency matters
+constexpr int kWarpsMany = 1;     // a whole matrix: chunks in flight matter
+// Chunks in a launch above which each gets one warp: more than fit on the
+// card at once with four warps a chunk (132 SMs x 7 blocks = 924).
+constexpr int kManyChunks = 4096;
+constexpr int kSweepSlices = 8;                // blocks sharing a +0.0 sweep
 constexpr uint32_t kOne = 0x3f800000u;         // 1.0f, exact in TF32
 
-// Row stride (in words) of a staged slab holding 8*NT columns: 24 words
-// for 16 columns keeps a fragment load free of bank conflicts.
+// Row stride (in elements) of a staged slab holding 8*NT columns: 24 words
+// for 16 columns keeps a fragment load free of bank conflicts; either
+// stride keeps every row 16-byte aligned for float32 and bfloat16.
 template <int NT>
 __host__ __device__ constexpr int stride() { return NT == 1 ? 8 : 24; }
 
@@ -89,14 +113,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r & 0xffffe000u;
-}
-
-// hi/lo split of one value into the staged slab.
-__device__ __forceinline__ void put_split(uint32_t* hi, uint32_t* lo, int at,
-                                          float a) {
-  const uint32_t h = to_tf32(a);
-  hi[at] = h;
-  lo[at] = to_tf32(a - __uint_as_float(h));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -108,194 +124,328 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename RowT, typename ColT, bool kBinary, int NT, typename XT>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// out[0:4] += v, one vector reduction where the address allows it.
+__device__ __forceinline__ void add4(float* out, const float (&v)[4], int n,
+                                     bool vec) {
+  if (vec && n == 4) {
+    atomicAdd(reinterpret_cast<float4*>(out),
+              make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+  for (int e = 0; e < n; ++e) atomicAdd(out + e, v[e]);
+}
+
+// The tile row of a neighbour of chunk g, for the +0.0 sweep: lane i <
+// kSweepSlices of each warp loads chunk g - 1 - i's, lane kSweepSlices + i
+// chunk g + 1 + i's (-1 outside the batch's valid chunks).  Loaded early,
+// used by sweep_zero after the decode.
+__device__ __forceinline__ int neighbour_row(const int32_t* meta,
+                                             int meta_ints, int g, int nv) {
+  const int i = threadIdx.x & 31;
+  const int h = i < kSweepSlices ? g - 1 - i : g + 1 + i - kSweepSlices;
+  return i < 2 * kSweepSlices && h >= 0 && h < nv
+      ? meta[static_cast<size_t>(h) * meta_ints] : -1;
+}
+
+// The +0.0 rule for chunk g's tile row (see the header, step 5).
+template <int kThreads>
+__device__ __forceinline__ void sweep_zero(int nb_row, int row, float* ob,
+                                           long long n, bool vec) {
+  const unsigned same = __ballot_sync(0xffffffffu, nb_row == row);
+  // chunks of this tile row right before g, and right after it (capped)
+  const int pos = __ffs(~same) - 1;
+  if (pos >= kSweepSlices) return;
+  const int after = __ffs(~(same >> kSweepSlices)) - 1;
+  const int run = min(kSweepSlices, pos + 1 + after);  // blocks sharing it
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const long long units = vec ? n / 4 : n;
+  for (int s = pos; s < kSweepSlices; s += run) {
+    const long long lo = units * s / kSweepSlices;
+    const long long hi = units * (s + 1) / kSweepSlices;
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      if (vec)
+        add4(ob + 4 * i, zero, 4, true);
+      else
+        atomicAdd(ob + i, 0.0f);
+    }
+  }
+}
+
+// Copy X rows c_s[l0 .. l1) (columns j0 .. j0 + jn) into a slab, kBytes a
+// copy (0: plain loads).  Each row's first element lands at row * W.
+template <int kThreads, int NT, int kBytes, typename XT>
+__device__ __forceinline__ void stage(XT* xs, const XT* xb, const int* c_s,
+                                      int l0, int l1, int j0, int jn, int p) {
+  constexpr int W = stride<NT>();
+  constexpr int V = kBytes ? kBytes / static_cast<int>(sizeof(XT)) : 1;
+  constexpr int kPer = 8 * NT / V;     // copies per row
+  const int used = (jn + V - 1) / V;
+  for (int e = threadIdx.x; e < (l1 - l0) * kPer; e += kThreads) {
+    const int l = e / kPer;
+    const int q = e - l * kPer;
+    if (q >= used) continue;
+    const XT* src = xb + static_cast<size_t>(c_s[l0 + l]) * p + j0 + q * V;
+    XT* dst = xs + l * W + q * V;
+    if constexpr (kBytes == 0)
+      *dst = *src;
+    else
+      cp_async<kBytes>(dst, src);
+  }
+}
+
+template <int kThreads, int NT, typename XT>
+__device__ __forceinline__ void stage_any(int copy_bytes, XT* xs,
+                                          const XT* xb, const int* c_s,
+                                          int l0, int l1, int j0, int jn,
+                                          int p) {
+  if (copy_bytes == 16)
+    stage<kThreads, NT, 16>(xs, xb, c_s, l0, l1, j0, jn, p);
+  else if (copy_bytes == 4)
+    stage<kThreads, NT, 4>(xs, xb, c_s, l0, l1, j0, jn, p);
+  else
+    stage<kThreads, NT, 0>(xs, xb, c_s, l0, l1, j0, jn, p);
+}
+
+template <int kWarps, typename RowT, typename ColT, bool kBinary, int NT,
+          typename XT>
+__global__ void __launch_bounds__(32 * kWarps)
 chunk_mxu_kernel(const int32_t* __restrict__ meta, int meta_ints,
                  const int32_t* __restrict__ n_valid,
                  const RowT* __restrict__ rows, const ColT* __restrict__ cols,
                  const float* __restrict__ vals,
                  const XT* __restrict__ x_pad, float* __restrict__ acc,
-                 int C, int T, int p) {
+                 int C, int T, int p, int copy_bytes, int vec_out) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kLaneSlab = kThreads;
   constexpr int W = stride<NT>();
   const int g = blockIdx.x;
-  if (g >= __ldg(n_valid)) return;
+  // meta is read before n_valid is known (every launched chunk has a row),
+  // so the two loads are in flight together
   const int32_t* m = meta + static_cast<size_t>(g) * meta_ints;
   const int tile_row = m[0];
   const int tile_col = m[1];
-  const int nnz = min(m[3], C);
-  const int c_pad = (C + 15) & ~15;
-  const int n_live = (nnz + 15) & ~15;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* r_s = reinterpret_cast<int*>(smem);          // c_pad row indices
-  int* c_s = r_s + c_pad;                           // c_pad column indices
-  float* v_s = reinterpret_cast<float*>(c_s + c_pad);  // c_pad values
-  uint32_t* xs_hi = reinterpret_cast<uint32_t*>(v_s + c_pad);
-  uint32_t* xs_lo = xs_hi + kTSlab * W;
-  uint32_t* ss_hi = xs_lo + kTSlab * W;
-  uint32_t* ss_lo = ss_hi + kLaneSlab * W;
-
-  decode_lanes<kThreads>(m, rows + static_cast<size_t>(g) * C,
-                         cols + static_cast<size_t>(g) * C, C, T, nnz, r_s,
-                         c_s);
-  __syncthreads();
-  // Dead lanes index nothing (-1 matches no row or column) and weigh 0.
-  const float* vg = kBinary ? nullptr : vals + static_cast<size_t>(g) * C;
-  for (int i = threadIdx.x; i < c_pad; i += kThreads) {
-    const bool live = i < nnz;
-    if (!live) {
-      r_s[i] = -1;
-      c_s[i] = -1;
-    }
-    v_s[i] = live ? (kBinary ? 1.0f : vg[i]) : 0.0f;
+  const int nnz = max(min(m[3], C), 0);
+  const int nv = __ldg(n_valid);
+  if (g >= nv) return;
+  float* ob = acc + static_cast<size_t>(tile_row) * T * p;
+  const long long tile_elems = static_cast<long long>(T) * p;
+  const int nb_row = neighbour_row(meta, meta_ints, g, nv);
+  if (nnz == 0) {
+    sweep_zero<kThreads>(nb_row, tile_row, ob, tile_elems, vec_out);
+    return;
   }
-  __syncthreads();
+
+  const int c_pad = (C + 15) & ~15;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* r_s = reinterpret_cast<int*>(smem);    // c_pad decoded rows
+  int* c_s = r_s + c_pad;                     // c_pad decoded columns
+  int* cid_s = c_s + c_pad;                   // c_pad compressed row ids
+  int* start_s = cid_s + c_pad;               // c_pad + 16 run starts
+  XT* xs = reinterpret_cast<XT*>(start_s + c_pad + 16);  // 2 slabs
+  float* v_s = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(xs)
+      + 2 * kLaneSlab * W * sizeof(float));   // 2 x kLaneSlab values
 
   const int warp = threadIdx.x >> 5;
   const int grp = (threadIdx.x & 31) >> 2;   // mma groupID
   const int tig = threadIdx.x & 3;           // mma thread-in-group
   const XT* xb = x_pad + static_cast<size_t>(tile_col) * T * p;
-  float* ob = acc + static_cast<size_t>(tile_row) * T * p;
-  const int n_row_groups = (T + 15) / 16;
+  const float* vg = kBinary ? nullptr : vals + static_cast<size_t>(g) * C;
+  const int n_slabs = (nnz + kLaneSlab - 1) / kLaneSlab;
+  const int n_steps = n_slabs * ((p + 8 * NT - 1) / (8 * NT));
 
-  for (int j0 = 0; j0 < p; j0 += 8 * NT) {
-    int l0 = 0;
-    do {  // at least once: an empty chunk still adds +0.0 to its tile row
-      const int slab = min(kLaneSlab, n_live - l0);
+  // step i: columns j0 = (i / n_slabs) * 8NT, lanes from (i % n_slabs) * slab
+  auto issue = [&](int i) {
+    const int j0 = (i / n_slabs) * 8 * NT;
+    const int l0 = (i % n_slabs) * kLaneSlab;
+    const int l1 = min(l0 + kLaneSlab, nnz);
+    const int buf = i & 1;
+    stage_any<kThreads, NT>(copy_bytes, xs + buf * kLaneSlab * W, xb, c_s,
+                            l0, l1, j0, min(8 * NT, p - j0), p);
+    for (int l = l0 + threadIdx.x; l < l1; l += kThreads)
+      v_s[buf * kLaneSlab + l - l0] = kBinary ? 1.0f : vg[l];
+    cp_async_commit();
+  };
 
-      // -- product 1: G (slab, 8NT) = E_c[slab] . X[:, j0:j0+8NT] --------
-      float d1[kGroupsPerWarp][NT][4] = {};
-      int ca[kGroupsPerWarp][2];
-      bool active[kGroupsPerWarp];
-      #pragma unroll
-      for (int q = 0; q < kGroupsPerWarp; ++q) {
-        const int base = 16 * (warp + kWarps * q);
-        active[q] = base < slab;
-        ca[q][0] = active[q] ? c_s[l0 + base + grp] : -1;
-        ca[q][1] = active[q] ? c_s[l0 + base + grp + 8] : -1;
-      }
-      for (int t0 = 0; slab > 0 && t0 < T; t0 += kTSlab) {
-        __syncthreads();  // the previous slab's readers are done
-        for (int e = threadIdx.x; e < kTSlab * 8 * NT; e += kThreads) {
-          const int t = e / (8 * NT);
-          const int n = e - t * (8 * NT);
-          const float xv = (t0 + t < T && j0 + n < p)
-              ? to_float(xb[static_cast<size_t>(t0 + t) * p + j0 + n])
-              : 0.0f;
-          put_split(xs_hi, xs_lo, t * W + n, xv);
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int k8 = 0; k8 < kTSlab; k8 += 8) {
-          uint32_t bh[NT][2], bl[NT][2];
-          #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int at = (k8 + tig) * W + nt * 8 + grp;
-            bh[nt][0] = xs_hi[at];
-            bh[nt][1] = xs_hi[at + 4 * W];
-            bl[nt][0] = xs_lo[at];
-            bl[nt][1] = xs_lo[at + 4 * W];
-          }
-          const int tk = t0 + k8 + tig;
-          #pragma unroll
-          for (int q = 0; q < kGroupsPerWarp; ++q) {
-            if (!active[q]) continue;
-            const uint32_t a[4] = {ca[q][0] == tk ? kOne : 0u,
-                                   ca[q][1] == tk ? kOne : 0u,
-                                   ca[q][0] == tk + 4 ? kOne : 0u,
-                                   ca[q][1] == tk + 4 ? kOne : 0u};
-            #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              mma_tf32(d1[q][nt], a, bh[nt][0], bh[nt][1]);
-              mma_tf32(d1[q][nt], a, bl[nt][0], bl[nt][1]);
-            }
-          }
-        }
-      }
+  decode_lanes<kThreads>(m, rows + static_cast<size_t>(g) * C,
+                         cols + static_cast<size_t>(g) * C, C, T, nnz, r_s,
+                         c_s);
+  __syncthreads();
+  issue(0);   // the first slab's gather overlaps the row compression
+  sweep_zero<kThreads>(nb_row, tile_row, ob, tile_elems, vec_out);
 
-      // -- S = v (.) G, split, into shared memory (slab-local lanes) -------
-      #pragma unroll
-      for (int q = 0; q < kGroupsPerWarp; ++q) {
-        if (!active[q]) continue;
-        const int li = 16 * (warp + kWarps * q) + grp;
-        const float v0 = v_s[l0 + li];
-        const float v1 = v_s[l0 + li + 8];
+  // -- 1. compressed row ids: a live lane opens a run where its row
+  //       differs from the previous lane's --------------------------------
+  int n_runs;
+  {
+    const int per = (nnz + kThreads - 1) / kThreads;
+    const int lo = min(static_cast<int>(threadIdx.x) * per, nnz);
+    const int hi = min(lo + per, nnz);
+    int opens = 0;
+    for (int i = lo; i < hi; ++i) opens += i == 0 || r_s[i] != r_s[i - 1];
+    int k = block_exclusive_scan<kThreads>(opens, &n_runs) - 1;
+    for (int i = lo; i < hi; ++i) {
+      if (i == 0 || r_s[i] != r_s[i - 1]) start_s[++k] = i;
+      cid_s[i] = k;
+    }
+    // lanes past nnz up to the next 16 match no compressed row
+    for (int i = nnz + threadIdx.x; i < ((nnz + 15) & ~15); i += kThreads)
+      cid_s[i] = -1;
+    if (threadIdx.x == 0) start_s[n_runs] = nnz;
+  }
+
+  __syncthreads();   // compressed ids and run starts are in place
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // slab i is in shared memory
+
+    const int j0 = (i / n_slabs) * 8 * NT;
+    const int l0 = (i % n_slabs) * kLaneSlab;
+    const int l1 = min(l0 + kLaneSlab, nnz);
+    const XT* xsb = xs + (i & 1) * kLaneSlab * W;
+    const float* vsb = v_s + (i & 1) * kLaneSlab;
+
+    // -- 3. blk rows (16 compressed rows, 8NT columns) += E_r^T . S over
+    //       the group's lanes in this slab --------------------------------
+    const int q_end = cid_s[l1 - 1] / 16;
+    for (int q = cid_s[l0] / 16 + warp; q <= q_end; q += kWarps) {
+      const int k0 = 16 * q;
+      const int k1 = min(k0 + 16, n_runs);
+      const int a = max(start_s[k0], l0);
+      const int b = min(start_s[k1], l1);
+      float d[NT][4] = {};
+      for (int k8 = a & ~7; k8 < b; k8 += 8) {
+        const int la = k8 + tig;
+        const int lb = la + 4;
+        const int ca = cid_s[la] - k0;
+        const int cb = cid_s[lb] - k0;
+        const uint32_t af[4] = {
+            ca == grp ? kOne : 0u, ca == grp + 8 ? kOne : 0u,
+            cb == grp ? kOne : 0u, cb == grp + 8 ? kOne : 0u};
         #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int col = nt * 8 + 2 * tig;
-          put_split(ss_hi, ss_lo, li * W + col, __fmul_rn(v0, d1[q][nt][0]));
-          put_split(ss_hi, ss_lo, li * W + col + 1,
-                    __fmul_rn(v0, d1[q][nt][1]));
-          put_split(ss_hi, ss_lo, (li + 8) * W + col,
-                    __fmul_rn(v1, d1[q][nt][2]));
-          put_split(ss_hi, ss_lo, (li + 8) * W + col + 1,
-                    __fmul_rn(v1, d1[q][nt][3]));
+          const int col = nt * 8 + grp;
+          // S = v (.) X[c], 0 on lanes past the slab's live ones
+          const float sa = la >= l1 ? 0.0f : __fmul_rn(
+              vsb[la - l0], to_float(xsb[(la - l0) * W + col]));
+          const float sb = lb >= l1 ? 0.0f : __fmul_rn(
+              vsb[lb - l0], to_float(xsb[(lb - l0) * W + col]));
+          const uint32_t ha = to_tf32(sa);
+          const uint32_t hb = to_tf32(sb);
+          mma_tf32(d[nt], af, ha, hb);
+          mma_tf32(d[nt], af, to_tf32(sa - __uint_as_float(ha)),
+                   to_tf32(sb - __uint_as_float(hb)));
         }
       }
-      __syncthreads();
 
-      // -- product 2: blk (T, 8NT) += E_r[slab]^T . S, added to acc ---------
-      for (int rg = warp; rg < n_row_groups; rg += kWarps) {
-        const int ta = rg * 16 + grp;
-        const int tb = ta + 8;
-        float d2[NT][4] = {};
-        for (int k8 = 0; k8 < slab; k8 += 8) {
-          const int ra = r_s[l0 + k8 + tig];
-          const int rb = r_s[l0 + k8 + tig + 4];
-          const uint32_t a[4] = {ra == ta ? kOne : 0u, ra == tb ? kOne : 0u,
-                                 rb == ta ? kOne : 0u, rb == tb ? kOne : 0u};
-          #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int at = (k8 + tig) * W + nt * 8 + grp;
-            mma_tf32(d2[nt], a, ss_hi[at], ss_hi[at + 4 * W]);
-            mma_tf32(d2[nt], a, ss_lo[at], ss_lo[at + 4 * W]);
-          }
-        }
-        #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          for (int h = 0; h < 2; ++h) {
-            const int col = j0 + nt * 8 + 2 * tig + h;
-            if (col >= p) continue;
-            if (ta < T) atomicAdd(ob + static_cast<size_t>(ta) * p + col,
-                                  d2[nt][h]);
-            if (tb < T) atomicAdd(ob + static_cast<size_t>(tb) * p + col,
-                                  d2[nt][2 + h]);
-          }
-        }
+      // -- 4. one reduction per compressed row and 4 columns: even threads
+      //       of a quad take row grp, odd ones row grp + 8 ----------------
+      const bool odd = tig & 1;
+      const int k = k0 + grp + (odd ? 8 : 0);
+      const bool live = k < k1 && start_s[k] < l1 && start_s[k + 1] > l0;
+      const int t = live ? r_s[start_s[k]] : 0;
+      #pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float o0 = __shfl_xor_sync(0xffffffffu,
+                                         odd ? d[nt][0] : d[nt][2], 1);
+        const float o1 = __shfl_xor_sync(0xffffffffu,
+                                         odd ? d[nt][1] : d[nt][3], 1);
+        const float v4[4] = {odd ? o0 : d[nt][0], odd ? o1 : d[nt][1],
+                             odd ? d[nt][2] : o0, odd ? d[nt][3] : o1};
+        const int col = j0 + nt * 8 + 4 * (tig >> 1);
+        if (live && col < p)
+          add4(ob + static_cast<size_t>(t) * p + col, v4, min(4, p - col),
+               vec_out);
       }
-      __syncthreads();  // S and X slabs are reused by the next slab or pass
-      l0 += kLaneSlab;
-    } while (l0 < n_live);
+    }
+    __syncthreads();   // slab i's buffer is free for step i + 2
   }
 }
 
-// Dynamic shared memory of one block: the decoded lanes and values, one X
-// slab and one S slab, each split in hi and lo.
-size_t smem_bytes(int C, int p) {
+// Dynamic shared memory of one block: the decoded lanes, compressed ids and
+// run starts (16 bytes a lane), two X slabs and their values.
+size_t smem_bytes(int C, int p, int warps) {
   const size_t c_pad = (static_cast<size_t>(C) + 15) & ~static_cast<size_t>(15);
   const int W = p <= 8 ? stride<1>() : stride<2>();
-  return 12 * c_pad + 8 * static_cast<size_t>(W) * (kTSlab + kLaneSlab);
+  return 4 * (4 * c_pad + 16)
+         + 2 * 32 * warps * (static_cast<size_t>(W) + 1) * sizeof(float);
 }
 
+template <int kWarps, typename RowT, typename ColT, bool kBinary, int NT,
+          typename XT>
+cudaError_t launch_warps(const void* meta, int meta_ints, const void* n_valid,
+                         const void* rows, const void* cols, const void* vals,
+                         const void* x_pad, void* acc, int n_chunks, int C,
+                         int T, int p, cudaStream_t stream) {
+  auto kernel = chunk_mxu_kernel<kWarps, RowT, ColT, kBinary, NT, XT>;
+  const size_t smem = smem_bytes(C, p, kWarps);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // Widest copy a gathered row allows: its bytes and X's base decide.
+  const auto x_at = reinterpret_cast<uintptr_t>(x_pad);
+  const size_t row_bytes = static_cast<size_t>(p) * sizeof(XT);
+  const int copy_bytes = x_at % 16 == 0 && row_bytes % 16 == 0 ? 16
+                         : x_at % 4 == 0 && row_bytes % 4 == 0 ? 4 : 0;
+  const int vec_out = reinterpret_cast<uintptr_t>(acc) % 16 == 0 && p % 4 == 0;
+  if (n_chunks > 0) {
+    kernel<<<n_chunks, 32 * kWarps, smem, stream>>>(
+        static_cast<const int32_t*>(meta), meta_ints,
+        static_cast<const int32_t*>(n_valid), static_cast<const RowT*>(rows),
+        static_cast<const ColT*>(cols), static_cast<const float*>(vals),
+        static_cast<const XT*>(x_pad), static_cast<float*>(acc), C, T, p,
+        copy_bytes, vec_out);
+  }
+  return cudaGetLastError();
+}
+
+// Warps a chunk, from the launch's chunk count: four while the launch's
+// chunks all fit on the card at once, so each finishes soonest; one past
+// kManyChunks, so four times as many are in flight (on the densify cell a
+// 256-chunk batch took 0.0085 ms with four warps a chunk and 0.020 with
+// one, the whole matrix 1.39 ms with four and 1.02 with one: PERF.md,
+// kernels/tune_densify.py).
 template <typename RowT, typename ColT, bool kBinary, int NT, typename XT>
 cudaError_t launch(const void* meta, int meta_ints, const void* n_valid,
                    const void* rows, const void* cols, const void* vals,
                    const void* x_pad, void* acc, int n_chunks, int C, int T,
                    int p, cudaStream_t stream) {
-  auto kernel = chunk_mxu_kernel<RowT, ColT, kBinary, NT, XT>;
-  const size_t smem = smem_bytes(C, p);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  if (n_chunks > 0) {
-    kernel<<<n_chunks, kThreads, smem, stream>>>(
-        static_cast<const int32_t*>(meta), meta_ints,
-        static_cast<const int32_t*>(n_valid), static_cast<const RowT*>(rows),
-        static_cast<const ColT*>(cols), static_cast<const float*>(vals),
-        static_cast<const XT*>(x_pad), static_cast<float*>(acc), C, T, p);
-  }
-  return cudaGetLastError();
+  if (n_chunks > kManyChunks)
+    return launch_warps<kWarpsMany, RowT, ColT, kBinary, NT, XT>(
+        meta, meta_ints, n_valid, rows, cols, vals, x_pad, acc, n_chunks, C,
+        T, p, stream);
+  return launch_warps<kWarpsFew, RowT, ColT, kBinary, NT, XT>(
+      meta, meta_ints, n_valid, rows, cols, vals, x_pad, acc, n_chunks, C, T,
+      p, stream);
 }
 
 template <typename RowT, typename ColT, bool kBinary, typename XT>

@@ -21,10 +21,13 @@ Each takes one of two variants, as the JAX package's kernels do:
 
 * ``"gather"`` (``csrc/sem_spmm.cu``): each live lane's X row is gathered,
   scaled and added into its output row; O(nnz * p) work.
-* ``"mxu"`` (``csrc/sem_spmm_mxu.cu``): each chunk is densified into two
-  one-hot products on the tensor cores, ``E_rᵀ · (v ⊙ (E_c · X_blk))``,
-  added over its whole tile row; O(live lanes * T * p) work.  It takes
-  ``C <= MXU_MAX_C`` (its shared-memory footprint).
+* ``"mxu"`` (``csrc/sem_spmm_mxu.cu``): each chunk's two one-hot products,
+  ``E_rᵀ · (v ⊙ (E_c · X_blk))``, applied only where they have ones: E_c
+  as a gather of the X rows the live lanes name, E_rᵀ on the tensor cores
+  over the chunk's distinct rows, one vector reduction per row and 4
+  columns, and +0.0 over each visited tile row once per batch; O(live
+  lanes * p) work.  It takes ``C <= MXU_MAX_C`` (its shared-memory
+  footprint).
 
 A wrapper launches the kernel for tensors on the card and runs the plain
 version only for tensors on the CPU; it raises on anything the kernel does
@@ -53,10 +56,13 @@ from repro_torch.kernels._build import library
 LAUNCHES = {"spmm_tiles_acc": 0, "spmm_tiles": 0, "spmm_tiles_acc_mxu": 0,
             "spmm_tiles_mxu": 0}
 VARIANTS = ("gather", "mxu")
-# Largest chunk capacity the densify kernel takes: its decoded lanes (12
-# bytes a lane) beside one X slab and one intermediate slab must fit a
-# block's 227 KB of shared memory (csrc/sem_spmm_mxu.cu).
-MXU_MAX_C = 13056
+# Largest chunk capacity the densify kernel takes (csrc/sem_spmm_mxu.cu,
+# smem_bytes): 16 bytes a lane (decoded rows and columns, compressed row
+# ids, run starts) plus 64, beside two X slabs of 128 lanes x 24 words and
+# their values (25,600 bytes) and 48 bytes of static scan buffers, within
+# a block's 232,448 bytes of shared memory: C <= 12,921, and a multiple of
+# 16 below it.
+MXU_MAX_C = 12912
 # Bytes of the two one-hot matrices the plain densify version holds at
 # once; a longer batch goes through in groups of chunks.
 MXU_PLAIN_BYTES = 1 << 27

@@ -251,14 +251,99 @@ def test_kernel_is_graph_capturable(cuda, stores):
 
 
 # -- the densify kernel (K1b, and K2-mxu through it) ------------------------
+# Hand-built batches of the densify kernel's corners (raw uint16 planes,
+# integer values), each ending in two tail pads past n_valid:
+#   hub        every lane of a chunk in one row;
+#   distinct   every live lane in a row of its own;
+#   split      a row in several runs of lanes (no writer produces it);
+#   empty      a chunk with nnz = 0 alone on its tile row (+0.0 there);
+#   alternate  tile rows 0, 1, 0, 1, 0;
+#   max_c      C = MXU_MAX_C (the largest shared-memory footprint): a hub
+#              chunk and a chunk of distinct rows, T = 16384.
+HAND_BUILT = ("hub", "distinct", "split", "empty", "alternate", "max_c")
+
+
+def _hand_built(case, rng):
+    """``(meta, rows, cols, vals, n_valid, T, n_tile_rows)`` of one
+    hand-built batch over 2 tile columns; vals is None for a binary
+    batch."""
+    T, C = (16384, sem_spmm.MXU_MAX_C) if case == "max_c" else (128, 32)
+    tiles = {"hub": [(1, 0, C), (1, 1, 9)],
+             "distinct": [(0, 1, 20), (2, 0, C), (2, 1, 1)],
+             "split": [(2, 0, 12), (2, 1, C)],
+             "empty": [(0, 0, 6), (1, 1, 0), (2, 1, 3)],
+             "alternate": [(0, 0, 10), (1, 1, 7), (0, 1, C), (1, 0, 5),
+                           (0, 0, 4)],
+             "max_c": [(0, 1, C), (2, 0, C)]}[case]
+    n = len(tiles) + 2
+    meta = np.zeros((n, 4), np.int32)
+    rows = np.zeros((n, C), np.uint16)
+    cols = np.zeros((n, C), np.uint16)
+    vals = np.zeros((n, C), np.float32)
+    for g, (tr, tc, k) in enumerate(tiles):
+        meta[g] = (tr, tc, 0, k)
+        cols[g, :k] = np.sort(rng.choice(T, k, replace=False))
+        if case in ("hub", "max_c") and g == 0:
+            r = np.full(k, 5)
+        elif case in ("distinct", "max_c"):
+            r = np.sort(rng.choice(T, k, replace=False))
+        elif case == "split" and g == 0:
+            r = np.array([4, 4, 9, 9, 4, 4, 11, 4, 9, 9, 9, 4])
+        else:
+            r = np.sort(rng.integers(0, T, k))
+        rows[g, :k] = r
+        vals[g, :k] = rng.integers(-3, 4, k)
+    meta[len(tiles):] = meta[len(tiles) - 1]      # the engine's tail pads
+    meta[len(tiles):, 3] = 0
+    binary = case in ("hub", "empty")
+    return (meta, rows, cols, None if binary else vals, len(tiles), T, 3)
+
+
+def _check_hand_built(case, decoded, p, cuda):
+    """A hand-built batch through the kernel and the plain version on a
+    sentinel and on a -0.0 accumulator: bit for bit with signs, tile rows
+    outside the batch untouched."""
+    rng = np.random.default_rng(p)
+    meta, rows, cols, vals, nv, T, ntr = _hand_built(case, rng)
+    if decoded:
+        rows, cols = rows.astype(np.int32), cols.astype(np.int32)
+    meta, rows, cols, vals = _planes((meta, rows, cols, vals), cuda)
+    x_pad = torch.from_numpy(rng.integers(-4, 5, (2 * T, p)).astype(
+        np.float32)).to(cuda)
+    n_valid = torch.tensor([nv], dtype=torch.int32, device=cuda)
+    touched = torch.zeros(ntr, dtype=torch.bool)
+    touched[meta[:nv, 0].long().cpu()] = True
+    for fill in (12345.0, -0.0):
+        acc = torch.full((ntr * T, p), fill, device=cuda)
+        plain = acc.clone()
+        before = sem_spmm.LAUNCHES["spmm_tiles_acc_mxu"]
+        sem_spmm.spmm_tiles_acc(meta, n_valid, rows, cols, vals, x_pad, acc,
+                                T=T, variant="mxu")
+        assert sem_spmm.LAUNCHES["spmm_tiles_acc_mxu"] - before == 1
+        sem_spmm.spmm_tiles_acc_mxu_plain(meta, n_valid, rows, cols, vals,
+                                          x_pad, plain, T=T)
+        got = acc.cpu().numpy().reshape(ntr, T, p)
+        np.testing.assert_array_equal(
+            got.view(np.uint32), plain.cpu().numpy().reshape(
+                ntr, T, p).view(np.uint32))
+        np.testing.assert_array_equal(
+            got[~touched.numpy()].view(np.uint32),
+            np.full_like(got[~touched.numpy()], fill).view(np.uint32))
+
+
 @pytest.mark.parametrize("name", ["val256", "bin256", "valopt256",
                                   "binopt256", "valopt4096", "binopt4096",
-                                  "val4096c1024", "bin200"])
+                                  "val4096c1024", "bin200", *HAND_BUILT])
 @pytest.mark.parametrize("decoded", [False, True])
-@pytest.mark.parametrize("p", [1, 5, 16, 20])
+@pytest.mark.parametrize("p", [1, 3, 5, 8, 9, 16, 17, 20])
 def test_mxu_kernel_matches_plain_integer(cuda, stores, name, decoded, p):
-    """Every plane type and store shape, p below, at and above one 16-column
-    pass, bit for bit on integer data, one launch per call."""
+    """Every plane type and store shape, p below, at and above one and two
+    16-column passes (ragged and 4-aligned widths: scalar and vector
+    reductions), bit for bit on integer data, one launch per call; the
+    hand-built batches also on sentinel and -0.0 accumulators."""
+    if name in HAND_BUILT:
+        _check_hand_built(name, decoded, p, cuda)
+        return
     st = stores[name]
     x = np.random.default_rng(p).integers(
         -4, 5, (st.header["n_cols"], p)).astype(np.float32)
@@ -320,6 +405,23 @@ def test_mxu_one_shot_kernel_matches_plain(cuda):
                                   .cpu().numpy())
 
 
+@pytest.mark.parametrize("p,dtype", [(3, "float32"), (16, "float32"),
+                                     (8, "bfloat16")])
+def test_mxu_one_shot_many_chunks(cuda, p, dtype):
+    """A one-shot product over more chunks than the kernel gives four warps
+    each (one warp a chunk there), bit for bit on integer data."""
+    g = rmat(13, 8, seed=5)
+    ct = to_chunked(g, T=256, C=8)
+    assert ct.n_chunks > 4096
+    x = torch.from_numpy(np.random.default_rng(p).integers(
+        -4, 5, (g.n_cols, p)).astype(np.float32)).to(getattr(torch, dtype))
+    before = sem_spmm.LAUNCHES["spmm_tiles_mxu"]
+    got = spmm_kernel(ct, x, variant="mxu", device=cuda)
+    assert sem_spmm.LAUNCHES["spmm_tiles_mxu"] - before == 1
+    assert torch.equal(got.cpu(), spmm_kernel(ct, x, variant="mxu",
+                                              device="cpu"))
+
+
 @pytest.mark.parametrize("name", ["val256", "binopt256"])
 def test_mxu_engine_on_card_matches_cpu(cuda, stores, name):
     path = stores[name].path
@@ -379,6 +481,23 @@ def test_one_shot_bf16(cuda, variant):
                       variant=variant, device=cuda).double().cpu().numpy()
     exact = spmm_kernel(ct, xn, variant=variant, device="cpu").double().numpy()
     np.testing.assert_allclose(got, exact, rtol=0.25, atol=0.25)
+
+
+@pytest.mark.parametrize("p", [3, 6, 8, 17])
+def test_mxu_one_shot_bf16_copy_widths(cuda, p):
+    """The densify kernel's bfloat16 operand at each way a row is gathered:
+    plain loads (odd p), 4-byte copies (p = 6) and 16-byte copies (p a
+    multiple of 8), bit for bit on integer data."""
+    g = rmat(11, 8, seed=3)
+    gv = g.with_values(np.random.default_rng(2).integers(
+        -3, 4, g.nnz).astype(np.float32))
+    ct = to_chunked(gv, T=256, C=64)
+    x = torch.from_numpy(np.random.default_rng(p).integers(
+        -4, 5, (g.n_cols, p)).astype(np.float32)).to(torch.bfloat16)
+    got = spmm_kernel(ct, x, variant="mxu", device=cuda)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), spmm_kernel(ct, x, variant="mxu",
+                                              device="cpu"))
 
 
 # -- K3: flash attention -----------------------------------------------------

@@ -5,7 +5,8 @@ package's Pallas mxu kernels in interpret mode, and the engine with
 ``kernel_variant="mxu"`` against the reference engine's Pallas mxu path.
 
 Sizes are the reference tests': T in {128, 256, 512}, C <= 128, p in
-{1, 3, 8, 16}.  Integer-valued data is compared bit for bit (each chunk's
+{1, 3, 8, 16}; hand-built batches of the densify kernel's corners (T = 128,
+C = 32, p up to 16) join them.  Integer-valued data is compared bit for bit (each chunk's
 one-hot products and the f32 sums of integers below 2**24 are exact in any
 order, in both packages); normal data to ``rtol = atol = 1e-5``, since the
 two packages' matrix products sum a chunk's lanes in different orders.
@@ -26,8 +27,8 @@ from repro.kernels.ops import spmm_pallas, spmm_pallas_batch
 from repro.kernels.ref import spmm_ref
 from repro.kernels.sem_spmm import spmm_tiles as ref_spmm_tiles
 from repro.kernels.sem_spmm import spmm_tiles_acc as ref_spmm_tiles_acc
-from repro_torch.convert import chunked_from_arrays
-from repro_torch.core.formats import ENC_FLAT_U16, ENC_FLAT_U24
+from repro_torch.convert import chunked_from_arrays, coo_from_arrays
+from repro_torch.core.formats import ENC_FLAT_U16, ENC_FLAT_U24, to_chunked
 from repro_torch.core.sem import SEMConfig, SEMSpMM
 from repro_torch.core.spmm import spmm
 from repro_torch.io.storage import TileStore
@@ -80,6 +81,86 @@ def _x_pad(st, p, seed, integer=True):
     return x
 
 
+# Hand-built batches for the densify kernel's corners (T = 128, C = 32,
+# 3 tile rows x 2 tile columns, raw uint16 planes, integer values):
+#   hub        every lane of a chunk in one row (one compressed group spans
+#              all C lanes);
+#   distinct   every live lane in a row of its own;
+#   split      a row in several runs of lanes (no writer produces it: they
+#              sort a tile's entries by (row, col), see
+#              test_writers_keep_each_row_one_run);
+#   empty      a chunk with nnz = 0 alone on its tile row, which still
+#              takes +0.0;
+#   alternate  tile rows 0, 1, 0, 1, 0 (the writers keep a tile row's
+#              chunks together).
+# Each batch ends in two tail pads past n_valid.
+HAND_T, HAND_C = 128, 32
+HAND_BUILT = ("hub", "distinct", "split", "empty", "alternate")
+
+
+def _hand_built(case, rng):
+    """``(meta, rows, cols, vals, n_valid)`` of one hand-built batch; vals
+    is None for a binary batch."""
+    T, C = HAND_T, HAND_C
+    tiles = {"hub": [(1, 0, C), (1, 1, 9)],
+             "distinct": [(0, 1, 20), (2, 0, C), (2, 1, 1)],
+             "split": [(2, 0, 12), (2, 1, C)],
+             "empty": [(0, 0, 6), (1, 1, 0), (2, 1, 3)],
+             "alternate": [(0, 0, 10), (1, 1, 7), (0, 1, C), (1, 0, 5),
+                           (0, 0, 4)]}[case]
+    n = len(tiles) + 2
+    meta = np.zeros((n, 4), np.int32)
+    rows = np.zeros((n, C), np.uint16)
+    cols = np.zeros((n, C), np.uint16)
+    vals = np.zeros((n, C), np.float32)
+    for g, (tr, tc, k) in enumerate(tiles):
+        meta[g] = (tr, tc, 0, k)
+        cols[g, :k] = np.sort(rng.choice(T, k, replace=False))
+        if case == "hub" and g == 0:
+            r = np.full(k, 5)
+        elif case == "distinct":
+            r = np.sort(rng.choice(T, k, replace=False))
+        elif case == "split" and g == 0:
+            r = np.array([4, 4, 9, 9, 4, 4, 11, 4, 9, 9, 9, 4])
+        else:
+            r = np.sort(rng.integers(0, T, k))
+        rows[g, :k] = r
+        vals[g, :k] = rng.integers(-3, 4, k)
+    meta[len(tiles):] = meta[len(tiles) - 1]      # the engine's tail pads
+    meta[len(tiles):, 3] = 0
+    binary = case in ("hub", "empty")
+    return (meta, rows, cols, None if binary else vals,
+            np.asarray([len(tiles)], np.int32))
+
+
+def _hand_built_both(case, p, decoded):
+    """One hand-built batch through the port's wrapper (the plain version,
+    on the CPU) and the Pallas mxu kernel, both on a -0.0 accumulator.  The
+    Pallas kernel keeps one tile row's window across a run of that row's
+    chunks and seeds it from the accumulator it was given, so it is called
+    once per run of one tile row, each call on the previous one's output."""
+    rng = np.random.default_rng(p)
+    meta, rows, cols, vals, nv = _hand_built(case, rng)
+    T = HAND_T
+    x_pad = rng.integers(-4, 5, (2 * T, p)).astype(np.float32)
+    acc0 = np.full((3 * T, p), -0.0, np.float32)
+    if decoded:
+        rows, cols = rows.astype(np.int32), cols.astype(np.int32)
+    got = sem_spmm.spmm_tiles_acc(
+        _as_torch(meta), torch.from_numpy(nv), _as_torch(rows),
+        _as_torch(cols), _as_torch(vals), torch.from_numpy(x_pad),
+        torch.from_numpy(acc0.copy()), T=T, variant="mxu").numpy()
+    want = jnp.asarray(acc0)
+    bounds = [0] + [g for g in range(1, nv[0])
+                    if meta[g, 0] != meta[g - 1, 0]] + [nv[0]]
+    for s, e in zip(bounds, bounds[1:]):
+        want = ref_spmm_tiles_acc(
+            meta[s:e], np.asarray([e - s], np.int32), rows[s:e], cols[s:e],
+            None if vals is None else vals[s:e], jnp.asarray(x_pad), want,
+            T=T, variant="mxu")
+    return got, np.asarray(want)
+
+
 def _stream_both(path, x_pad, decoded=False, batch=37):
     """Every batch of a store through the port's wrapper (the plain version,
     on the CPU) and the reference's jitted engine step, both "mxu"."""
@@ -111,9 +192,26 @@ def _stream_both(path, x_pad, decoded=False, batch=37):
     ("bin128", True, 16),
     ("opt256", False, 16),    # u8/u8 16-bit flattened deltas
     ("opt512", False, 3),     # 16-bit and u16/u8 24-bit deltas mixed
+    ("hub", False, 3),        # hand-built batches (_hand_built)
+    ("distinct", True, 16),
+    ("split", False, 8),
+    ("empty", False, 1),
+    ("alternate", False, 9),
 ])
 def test_batch_mxu_plain_matches_reference_bitwise(stores, name, decoded, p):
-    """37-chunk batches, so batches start and end inside tile rows."""
+    """37-chunk batches, so batches start and end inside tile rows; the
+    hand-built batches on a -0.0 accumulator, bit for bit with signs."""
+    if name in HAND_BUILT:
+        got, want = _hand_built_both(name, p, decoded)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+        meta, nv = (_hand_built(name, np.random.default_rng(p))[i]
+                    for i in (0, 4))
+        touched = np.isin(np.arange(3), meta[: nv[0], 0])
+        blocks = got.reshape(3, HAND_T, p)
+        assert not (np.signbit(blocks[touched]) & (blocks[touched] == 0)).any()
+        assert np.signbit(blocks[~touched]).all()
+        return
     st = TileStore.open(stores[name])
     tr = st.chunk_tile_rows()
     starts = [s for s, _ in st.batch_plan(37)][1:]
@@ -125,6 +223,34 @@ def test_batch_mxu_plain_matches_reference_bitwise(stores, name, decoded, p):
     got, want = _stream_both(stores[name], _x_pad(st, p, seed=p),
                              decoded=decoded)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("writer,kind", [
+    ("reference", "val"), ("reference", "bin"), ("reference", "opt"),
+    ("port", "val"), ("port", "bin"), ("port", "opt")])
+def test_writers_keep_each_row_one_run(stores, small_int, tmp_path, writer,
+                                       kind):
+    """The densify kernel reduces a chunk's rows run by run: every store
+    kind, raw or ``.optimize()``d, written by either package, keeps each
+    row of a chunk in one run of consecutive lanes (a tile's entries
+    sorted by (row, col)), so no row is reduced twice."""
+    for T, C in SIZES.items():
+        if writer == "reference":
+            st = TileStore.open(stores[f"{kind}{T}"])
+        else:
+            ct = to_chunked(coo_from_arrays(
+                small_int.n_rows, small_int.n_cols, small_int.rows,
+                small_int.cols, None if kind == "bin" else small_int.vals),
+                T=T, C=C)
+            st = TileStore.write(str(tmp_path / f"{kind}{T}"), ct,
+                                 binary=kind == "bin")
+            if kind == "opt":
+                st = st.optimize(str(tmp_path / f"o{T}"), reorder=T != 512)
+        for s, n in st.batch_plan(64):
+            meta, rows, _, _ = st.read_batch(s, n)
+            live = np.arange(C)[None, :] < meta[:, 3:4]
+            step = np.diff(rows.astype(np.int64), axis=1)
+            assert (step[live[:, 1:]] >= 0).all()
 
 
 def test_batch_mxu_float_within_tolerance(small_valued, tmp_path):
