@@ -23,7 +23,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    to 1e-5 on normal data; times from CUDA events;
 4b. densify kernels: the same for the densify kernel (K1b) and its one-shot
    use (K2 mxu) on the densify cell's stores at p = 16, with their times
-   before the kernel's redesign beside the new ones;
+   before the kernel's redesign beside the new ones; K1b within its limit
+   and faster than ``torch.sparse.mm``; K1a and K1b on an operand holding
+   an inf and a NaN, NaN for NaN equal to the plain gather version;
 4c. crossover: K1a and K1b on one 256-chunk batch at T in {256 .. 16384}
    (C = 256) and on a batch of the main path's store (T = 16384, C = 2048),
    p in {1, 8, 16}: the table ``kernels/ops.py::pick_variant`` follows;
@@ -46,7 +48,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels' plain versions) in which every flash-attention (K3) and SSD
    (K4) call also runs the kernel on the same inputs, held elementwise to
    FLOAT_TOL of that call's error scale; both kernels timed on the first
-   calls' inputs, with their bounds and SDPA as K3's yardstick; then the
+   calls' inputs, with their bounds (K3's on the tensor cores, at float32
+   accuracy, and on the CUDA cores) and SDPA as K3's yardstick; then the
    main path, the serving prefill ``model_api.forward(...,
    logits_last_only=True)`` through the kernels: 13 K3 and 81 K4 launches,
    finite logits no farther from the plain prefill's than twice the plain
@@ -70,6 +73,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -87,10 +91,17 @@ T, C, BATCH, P = 16384, 2048, 256, 8
 TM, CM, PM = 2048, 256, 16      # the densify cell: tile, chunk, operand width
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores
 # The densify kernel's times before its redesign (PERF.md section 6, the
 # kernel table's "before" times; NVIDIA H100 80GB HBM3 at 700 W): K1b per
 # 256-chunk batch of the densify cell, K2 mxu over its whole matrix.
 BEFORE_MS = {"K1b": 0.13048640251159668, "K2 mxu": 55.707275390625}
+# K3's time per call before its redesign (the CUDA-core kernel, PERF.md
+# section 6; NVIDIA H100 80GB HBM3 at 700 W), at the same shape.
+K3_BEFORE_MS = 4.009308624267578
+# K1b's limit per 256-chunk batch of the densify cell (a quarter of the
+# before time, PERF.md section 6); it must also beat torch.sparse.mm.
+K1B_LIMIT_MS = 0.033
 # Kernel vs plain on non-integer data, relative to the terms' magnitude:
 # see check_float.
 FLOAT_TOL = 1e-5
@@ -210,11 +221,11 @@ def check_float(variant, what, meta, nv, rows, cols, vals, x_pad, got,
     return float((err / scale.clamp_min(1e-30)).max())
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, rate: float = FP32_FLOPS_PER_S):
     """Least time on the card (ms) and what sets it: the bytes over the HBM
-    rate or the float32 operations over the peak rate, whichever is
-    longer."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    rate or the operations over their peak rate (float32 on the CUDA cores
+    unless given), whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -589,7 +600,12 @@ def run_mxu_phase(cell, rng, dev):
               f"K1b leaves untouched tile rows' {fill} alone")
         log(f"K1b accumulator filled with {fill}: bitwise with signs, "
             f"{int((~touched).sum())} untouched tile rows kept")
+    check_non_finite(meta, nv, rows, cols, vals, x_pad, n_acc)
     records = {"K1b": time_batch("mxu", *timed, worst, T_=TM, label="K1b")}
+    r = records["K1b"]
+    check(r["ms"] <= K1B_LIMIT_MS and r["ms"] < r["library_ms"],
+          f"K1b within {K1B_LIMIT_MS} ms a batch and faster than "
+          f"torch.sparse.mm: {r['ms']} ms against {r['library_ms']} ms")
     records["K2 mxu"] = run_k2(cell["ct_at"], rng, dev, "mxu", TM, PM,
                                reps=3, plain_reps=1, label="K2 mxu")
     for key, r in records.items():
@@ -599,6 +615,36 @@ def run_mxu_phase(cell, rng, dev):
             f"time), bound {r['bound_ms']} ms ({r['ms'] / r['bound_ms']:.1f}x"
             f" the bound)")
     return records
+
+
+def check_non_finite(meta, nv, rows, cols, vals, x_pad, n_acc):
+    """K1a and K1b on one densify-cell batch with a non-finite operand (an
+    inf and a NaN in X rows the batch names) against the gather plain
+    version, NaN for NaN: NaN and inf reach only the rows whose live lanes
+    meet them, as in the reference's default path."""
+    from repro_torch.kernels import sem_spmm
+    x = x_pad.clone()
+    _, c = sem_spmm._decode_lanes(meta, rows, cols, TM)
+    x[int(meta[0, 1]) * TM + int(c[0, 0]), 0] = math.inf
+    x[int(meta[-1, 1]) * TM + int(c[-1, 0]), 3] = math.nan
+    want = sem_spmm.spmm_tiles_acc_plain(
+        meta, nv, rows, cols, vals, x, torch.zeros((n_acc, PM),
+                                                   device=x.device), T=TM)
+    bad = int((~want.isfinite()).sum())
+    check(0 < bad < TM, "non-finite operand: a few rows take NaN or inf")
+    for variant, label in (("gather", "K1a"), ("mxu", "K1b")):
+        got = torch.zeros_like(want)
+        sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x, got, T=TM,
+                                variant=variant)
+        same = (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got.nan_to_num(nan=0.0, posinf=math.inf,
+                                               neginf=-math.inf),
+                                want.nan_to_num(nan=0.0, posinf=math.inf,
+                                                neginf=-math.inf)))
+        check(same, f"{label} on a non-finite operand: NaN for NaN")
+        log(f"{label} on a non-finite operand (an inf and a NaN in X): "
+            f"equal to the plain gather version NaN for NaN, {bad} "
+            "non-finite elements")
 
 
 # -- phase 4c: where the densify kernel beats the gather kernel --------------
@@ -1135,11 +1181,18 @@ def time_k3(first, card):
     # causal: every query meets the keys up to its own, two products
     flops = 4 * B * H * hd * L * (L + 1) // 2
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ms, bound_by = bound(nbytes, flops)
+    core_ms, _ = bound(nbytes, flops)
+    # at float32 accuracy on the tensor cores: the three-term TF32 split
+    # does each product three times
+    bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
     log(f"K3 per call at {tuple(q.shape)} over {tuple(k.shape)}: {ms} ms "
-        f"(CUDA events, 10 calls), plain {plain_ms} ms, SDPA {library_ms} ms;"
-        f" bound {bound_ms} ms ({bound_by}: {flops / 1e9:.2f} GFLOP float32, "
-        f"{nbytes} B) [{card}]")
+        f"(CUDA events, 10 calls), plain {plain_ms} ms, SDPA {library_ms} ms"
+        f" ({ms / library_ms:.3f}x SDPA's time; before the redesign "
+        f"{K3_BEFORE_MS} ms, {K3_BEFORE_MS / ms:.2f}x); bound on the tensor "
+        f"cores {bound_ms} ms ({bound_by}: 3 x {flops / 1e9:.2f} GFLOP "
+        f"TF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes} B), on the "
+        f"CUDA cores {core_ms} ms (float32 at {FP32_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s) [{card}]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 

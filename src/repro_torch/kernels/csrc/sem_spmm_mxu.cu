@@ -13,8 +13,11 @@
 //   * blk (T, p) = E_r^T . (v (.) (E_c . X[tile_col])), where E_c (C, T)
 //     and E_r (C, T) are the one-hot matrices of the lanes' column and row
 //     indices and v the stored values (1 for a binary store); lanes at or
-//     past the chunk's nnz are rows of zeros in both (the writer stores
-//     value 0 there, so for finite operands this is the reference's sum);
+//     past the chunk's nnz are rows of zeros in both, and a live lane's
+//     term v * x that is not finite is added into its own row alone
+//     (route), so NaN and inf reach only the rows whose live lanes meet
+//     them: this is the reference's default jnp path (core/spmm.py::
+//     _spmm_chunked_impl), for finite and non-finite operands alike;
 //   * acc[tile_row] += blk, over all T rows: a row of a visited tile row
 //     that gets no entry receives +0.0, as the reference's out + blk gives
 //     it (so a -0.0 there becomes +0.0, bit for bit as in the reference).
@@ -62,11 +65,17 @@
 //
 // Precision.  mma.sync m16n8k8 takes TF32 (10 mantissa bits).  The one-hot
 // factor is exact in TF32; S is split as hi = tf32(s), lo = tf32(s - hi)
-// and each product is issued twice, accumulating in f32.  hi + lo keeps 22
-// significant bits of s, so a term carries a relative error below 2**-21;
-// integer-valued operands below 2**22 are exact, and so is every f32 sum of
-// integers below 2**24 in any order: on such data the kernel equals the
-// reference bit for bit.
+// and each product is issued twice, accumulating in f32 (tf32_mma.cuh).
+// hi + lo keeps 22 significant bits of s, so a term carries a relative
+// error below 2**-21; integer-valued operands below 2**22 are exact, and so
+// is every f32 sum of integers below 2**24 in any order: on such data the
+// kernel equals the reference bit for bit.  A term the split cannot carry
+// (NaN, inf, or |s| so large that tf32(s) rounds to inf) would give NaN to
+// every row of its 16-row group (0 * inf in the one-hot product).  Such a
+// term shows as a non-finite accumulator: the warp then sums that group
+// again with the term entering the mma as 0 and reaching its own row by
+// one scalar reduction (route).  Finite operands below that size take the
+// first sum alone, unchanged bit for bit.
 //
 // Block size.  A block is one chunk, and its warps are sized to the
 // launch: 4 warps (128 threads) while the launch's chunks all fit on the
@@ -87,9 +96,11 @@
 // The host entry point has a plain C interface, like the gather kernel's.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "decode.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -109,42 +120,39 @@ constexpr uint32_t kOne = 0x3f800000u;         // 1.0f, exact in TF32
 template <int NT>
 __host__ __device__ constexpr int stride() { return NT == 1 ? 8 : 24; }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r & 0xffffe000u;
+// S's two TF32 terms through one m16n8k8 product each (the one-hot A
+// fragment is exact): d += E . hi(S) + E . lo(S), S = (sa, sb) the B
+// fragment.
+__device__ __forceinline__ void split_mma(float (&d)[4],
+                                          const uint32_t (&af)[4], float sa,
+                                          float sb) {
+  uint32_t ha, la, hb, lb;
+  split_tf32(sa, ha, la);
+  split_tf32(sb, hb, lb);
+  mma_tf32(d, af, ha, hb);
+  mma_tf32(d, af, la, lb);
 }
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+// Terms the split cannot carry (NaN, inf, or so large that the TF32 part
+// rounds to inf) entered the careful sweep's mma as 0; this pass over the
+// same terms of the thread (lanes [a, b) of the warp's row group, its columns
+// below p) adds each such term to its lane's row r_s[lane] by a scalar
+// reduction, so a NaN or inf reaches only the rows whose live lanes meet
+// it, as in the reference's default path.
+template <int NT, typename Term>
+__device__ __forceinline__ void route(const Term& term, int a, int b,
+                                      const int* r_s, float* ob, int p,
+                                      int j0) {
+  const int tig = threadIdx.x & 3;
+  const int grp = (threadIdx.x & 31) >> 2;
+  for (int k8 = a & ~7; k8 < b; k8 += 8)
+    for (int l = k8 + tig; l < k8 + 8; l += 4)
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + grp;
+        const float s = term(l, col);
+        if (!tf32_splittable(s) && l >= a && l < b && j0 + col < p)
+          atomicAdd(ob + static_cast<size_t>(r_s[l]) * p + j0 + col, s);
+      }
 }
 
 // out[0:4] += v, one vector reduction where the address allows it.
@@ -206,9 +214,17 @@ __device__ __forceinline__ void stage(XT* xs, const XT* xb, const int* c_s,
   for (int e = threadIdx.x; e < (l1 - l0) * kPer; e += kThreads) {
     const int l = e / kPer;
     const int q = e - l * kPer;
-    if (q >= used) continue;
-    const XT* src = xb + static_cast<size_t>(c_s[l0 + l]) * p + j0 + q * V;
     XT* dst = xs + l * W + q * V;
+    if (q >= used) {   // columns past p: zeros, so the sums there stay finite
+      if constexpr (kBytes == 16)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      else if constexpr (kBytes == 4)
+        *reinterpret_cast<uint32_t*>(dst) = 0u;
+      else
+        *dst = XT{};
+      continue;
+    }
+    const XT* src = xb + static_cast<size_t>(c_s[l0 + l]) * p + j0 + q * V;
     if constexpr (kBytes == 0)
       *dst = *src;
     else
@@ -341,29 +357,56 @@ chunk_mxu_kernel(const int32_t* __restrict__ meta, int meta_ints,
       const int k1 = min(k0 + 16, n_runs);
       const int a = max(start_s[k0], l0);
       const int b = min(start_s[k1], l1);
-      float d[NT][4] = {};
-      for (int k8 = a & ~7; k8 < b; k8 += 8) {
-        const int la = k8 + tig;
-        const int lb = la + 4;
-        const int ca = cid_s[la] - k0;
-        const int cb = cid_s[lb] - k0;
-        const uint32_t af[4] = {
-            ca == grp ? kOne : 0u, ca == grp + 8 ? kOne : 0u,
-            cb == grp ? kOne : 0u, cb == grp + 8 ? kOne : 0u};
-        #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = nt * 8 + grp;
-          // S = v (.) X[c], 0 on lanes past the slab's live ones
-          const float sa = la >= l1 ? 0.0f : __fmul_rn(
-              vsb[la - l0], to_float(xsb[(la - l0) * W + col]));
-          const float sb = lb >= l1 ? 0.0f : __fmul_rn(
-              vsb[lb - l0], to_float(xsb[(lb - l0) * W + col]));
-          const uint32_t ha = to_tf32(sa);
-          const uint32_t hb = to_tf32(sb);
-          mma_tf32(d[nt], af, ha, hb);
-          mma_tf32(d[nt], af, to_tf32(sa - __uint_as_float(ha)),
-                   to_tf32(sb - __uint_as_float(hb)));
+      // S = v (.) X[c], 0 on lanes past the slab's live ones
+      auto term = [&](int l, int col) {
+        return l >= l1 ? 0.0f : __fmul_rn(
+            vsb[l - l0], to_float(xsb[(l - l0) * W + col]));
+      };
+      // d += E_r^T . S over the group's lanes; when careful, a term the
+      // split cannot carry enters as 0, and the result says one did
+      auto sweep = [&](float (&d)[NT][4], auto careful) {
+        bool unfit = false;
+        for (int k8 = a & ~7; k8 < b; k8 += 8) {
+          const int la = k8 + tig;
+          const int lb = la + 4;
+          const int ca = cid_s[la] - k0;
+          const int cb = cid_s[lb] - k0;
+          const uint32_t af[4] = {
+              ca == grp ? kOne : 0u, ca == grp + 8 ? kOne : 0u,
+              cb == grp ? kOne : 0u, cb == grp + 8 ? kOne : 0u};
+          #pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float sa = term(la, nt * 8 + grp);
+            const float sb = term(lb, nt * 8 + grp);
+            if constexpr (decltype(careful)::value) {
+              const bool fa = tf32_splittable(sa);
+              const bool fb = tf32_splittable(sb);
+              unfit |= !(fa && fb);
+              split_mma(d[nt], af, fa ? sa : 0.0f, fb ? sb : 0.0f);
+            } else {
+              split_mma(d[nt], af, sa, sb);
+            }
+          }
         }
+        return unfit;
+      };
+      float d[NT][4] = {};
+      sweep(d, std::false_type{});
+      // A term the split cannot carry makes its whole column of d NaN or
+      // inf (0 * inf in the one-hot product, inf - inf in the split), so a
+      // finite sum of d means every term fitted (a finite sum that
+      // overflows only costs the second pass); otherwise (rare) the group
+      // is summed again with such terms routed around the mma.
+      float total = 0.0f;
+      #pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        total += (d[nt][0] + d[nt][1]) + (d[nt][2] + d[nt][3]);
+      if (__any_sync(0xffffffffu, !isfinite(total))) {
+        #pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          #pragma unroll
+          for (int e = 0; e < 4; ++e) d[nt][e] = 0.0f;
+        if (sweep(d, std::true_type{})) route<NT>(term, a, b, r_s, ob, p, j0);
       }
 
       // -- 4. one reduction per compressed row and 4 columns: even threads

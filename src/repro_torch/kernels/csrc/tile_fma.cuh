@@ -1,5 +1,5 @@
-// Float32 tile products on the CUDA cores, shared by the flash-attention
-// kernel (flash_attention.cu) and the SSD chunk kernel (ssd_chunk.cu).
+// Float32 tile products on the CUDA cores, for the SSD chunk kernel
+// (ssd_chunk.cu).
 //
 // A block of kTileThreads = 256 threads computes a 64-row output tile.
 // Thread t = 16*ty + tx owns rows r0 = 4*ty .. 4*ty+3 and columns

@@ -28,7 +28,7 @@ from repro_torch.kernels._build import library
 NEG_INF = -1e30
 # Kernel launches since the last reset_launches() (plain runs do not count).
 LAUNCHES = {"flash_attention": 0}
-# Largest head dimension the kernel takes (its padded tile, csrc/).
+# Largest head dimension the kernel takes (csrc/flash_attention.cu).
 MAX_HD = 128
 
 
@@ -119,8 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     Bk: int = 256) -> torch.Tensor:
     """Attention of q (B, L, H, hd) over k, v (B, S, KV, hd); returns
     (B, L, H, hd) in q's dtype.  ``Bq``/``Bk`` are the reference's block
-    sizes: L and S must be multiples of them (the kernel tiles by 64
-    whatever they are)."""
+    sizes: L and S must be multiples of them (the kernel tiles by its own
+    block shape whatever they are)."""
     _check(q, k, v, Bq, Bk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,

@@ -139,7 +139,14 @@ def spmm_tiles_acc_mxu_plain(meta, n_valid, row_local, col_local, vals,
     (E_c · X[tile_col]))``, then ``acc[tile_row] += blk`` over the whole
     tile row.  Lanes at or past a chunk's nnz are zero rows of both one-hot
     matrices.  Chunks go through in groups of at most ``MXU_PLAIN_BYTES``
-    of one-hot matrices."""
+    of one-hot matrices.
+
+    Non-finite operands: a live lane's product ``v * x`` that is not finite
+    enters the one-hot products as 0 and is added into its own row by
+    ``index_add_``, and X's non-finite entries enter ``E_c`` as 0, so
+    NaN/inf reach only the rows whose live lanes meet them, as in the
+    reference's default path (``core/spmm.py::_spmm_chunked_impl``).  On
+    finite operands nothing changes."""
     nv = int(n_valid.reshape(-1)[0])
     meta, x_pad = meta[:nv], x_pad.float()
     r, c = _decode_lanes(meta, row_local[:nv], col_local[:nv], T)
@@ -147,8 +154,18 @@ def spmm_tiles_acc_mxu_plain(meta, n_valid, row_local, col_local, vals,
     C, p = r.shape[1], x_pad.shape[1]
     live = torch.arange(C, device=r.device)[None, :] < m[:, 3:4]
     hot = live.to(x_pad.dtype)
-    v = hot if vals is None else torch.where(live, vals[:nv], 0.0)
+    v = (hot if vals is None else torch.where(live, vals[:nv], 0.0))[..., None]
     r, c = r.where(live, 0), c.where(live, 0)
+    x_fin = x_pad.isfinite().all()
+    if not (x_fin and v.isfinite().all()):
+        prod = v * x_pad[m[:, 1:2] * T + c]
+        odd = ~prod.isfinite() & live[:, :, None]
+        lanes = odd.any(2)
+        acc.index_add_(0, (m[:, 0:1] * T + r)[lanes],
+                       torch.where(odd, prod, 0.0)[lanes])
+        v = torch.where(odd, 0.0, v)
+        if not x_fin:
+            x_pad = torch.where(x_pad.isfinite(), x_pad, 0.0)
     xb, ab = x_pad.reshape(-1, T, p), acc.view(-1, T, p)
     step = max(1, MXU_PLAIN_BYTES // (2 * C * T * x_pad.element_size()))
     for s in range(0, nv, step):
@@ -158,8 +175,7 @@ def spmm_tiles_acc_mxu_plain(meta, n_valid, row_local, col_local, vals,
         one_hot[0].scatter_(2, c[s:e, :, None], hot[s:e, :, None])
         one_hot[1].scatter_(2, r[s:e, :, None], hot[s:e, :, None])
         gathered = torch.bmm(one_hot[0], xb[m[s:e, 1]])
-        blk = torch.bmm(one_hot[1].transpose(1, 2),
-                        v[s:e, :, None] * gathered)
+        blk = torch.bmm(one_hot[1].transpose(1, 2), v[s:e] * gathered)
         ab.index_add_(0, m[s:e, 0], blk)
     return acc
 

@@ -223,3 +223,72 @@ def test_attention_block_matches_reference():
         cross_cached=True, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
+
+
+def _tf32(x):
+    """x (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10
+    mantissa bits kept, to nearest with ties away from zero (adding half a
+    unit to the magnitude bits, then clearing the 13 low bits)."""
+    bits = x.view(torch.int32).to(torch.int64)
+    bits = ((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF
+    return torch.where(bits >= 1 << 31, bits - (1 << 32),
+                       bits).to(torch.int32).view(torch.float32)
+
+
+def _split_mm(a, b, terms):
+    """a @ b (float32) as the kernel forms it on the tensor cores: a and b
+    split as hi = tf32(x), lo = tf32(x - hi), each TF32 product exact in
+    float32 and summed in float32.  ``terms`` 3: a_hi b_hi + a_hi b_lo +
+    a_lo b_hi (the kernel's split); 1: a_hi b_hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if terms == 3:
+        out = out + ah @ _tf32(b - bh) + _tf32(a - ah) @ bh
+    return out
+
+
+def _attention_split(q, k, v, terms):
+    """Causal attention of one head (q, k, v (L, hd) float32) with both
+    products through ``_split_mm`` and the softmax in float32, as the
+    kernel computes it (one key tile: the online rescaling is exact)."""
+    s = _split_mm(q * (1.0 / math.sqrt(q.shape[1])), k.T, terms)
+    s = torch.where(torch.ones_like(s, dtype=torch.bool).tril(), s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _split_mm(p, v, terms) / p.sum(-1, keepdim=True)
+
+
+def _attention_scale(q, k, v):
+    """Float64 attention output of one causal head and its first-order
+    error scale per element, ``E = sum_j p_j (S_j |v_j - o| + |v_j|)``,
+    ``S_j = scale * sum_d |q_d| |k_jd|``: the scale chip_smoke.py's
+    ``attention_scale`` holds each K3 call to (FLOAT_TOL * E)."""
+    q, k, v = q.double(), k.double(), v.double()
+    qs = q / math.sqrt(q.shape[1])
+    s = torch.where(torch.ones((q.shape[0], k.shape[0]),
+                               dtype=torch.bool).tril(), qs @ k.T, -math.inf)
+    p = torch.softmax(s, -1)
+    o = p @ v
+    w = p * (qs.abs() @ k.abs().T)
+    e = p @ v.abs() + (w[..., None] * (v[None] - o[:, None]).abs()).sum(1)
+    return o, e
+
+
+@pytest.mark.parametrize("spread", [1.0, 10.0])
+def test_three_term_tf32_split_holds_float32_accuracy(spread):
+    """The kernel's arithmetic, emulated: at hd = 112 (Zamba2-7B), both
+    products through the three-term TF32 split stay within 1e-5 of the
+    error scale of float64 attention, as every K3 call of a prefill must
+    on the card; one TF32 term does not (so the bound tells them apart).
+    ``spread`` scales q: 10 gives scores spread over tens, as the
+    random-weight model's are."""
+    rng = np.random.default_rng(16)
+    L, hd = 256, 112
+    for h in range(2):
+        q, k, v = (torch.from_numpy(rng.standard_normal((L, hd))
+                                    .astype(np.float32)) for _ in range(3))
+        q = q * spread
+        want, scale = _attention_scale(q, k, v)
+        three = (_attention_split(q, k, v, 3).double() - want).abs()
+        one = (_attention_split(q, k, v, 1).double() - want).abs()
+        assert float((three / scale).max()) <= 1e-5
+        assert float((one / scale).max()) > 1e-5

@@ -14,6 +14,7 @@ sides), so they differ by rounding of the order of the terms, which for a
 row whose terms cancel is far larger than the result (see ``_terms``).
 """
 import copy
+import math
 
 import numpy as np
 import pytest
@@ -458,6 +459,46 @@ def test_mxu_kernel_is_graph_capturable(cuda, stores):
     assert torch.equal(acc, 2 * once)
 
 
+@pytest.mark.parametrize("variant", ["gather", "mxu"])
+@pytest.mark.parametrize("p", [2, 9])
+def test_kernels_on_non_finite_operand(cuda, variant, p):
+    """K1a and K1b in 37-chunk batches, and K2 through them, on an operand
+    with ``x[0, 0] = inf`` (and a NaN at p = 9) and a value inf: NaN for NaN
+    equal to the gather plain version on the CPU, which
+    tests/test_torch_nonfinite.py holds to the reference's default path.
+    The input is that test's (R-MAT scale 10, T = 256, C = 64, integers)."""
+    T = 256
+    g = rmat(10, 8, seed=1)
+    rng = np.random.default_rng(11)
+    gv = g.with_values(rng.integers(-3, 4, g.nnz).astype(np.float32))
+    ct = to_chunked(gv, T=T, C=64)
+    x = rng.integers(-4, 5, (g.n_cols, p)).astype(np.float32)
+    x[0, 0] = np.inf
+    if p > 2:
+        x[5, 7] = np.nan
+    vals = ct.vals.copy()
+    vals[3, 0] = np.inf
+    x_pad = np.zeros((ct.padded_cols, p), np.float32)
+    x_pad[: g.n_cols] = x
+    planes = [torch.from_numpy(a) for a in (ct.meta, ct.row_local,
+                                            ct.col_local, vals)]
+    want = sem_spmm.spmm_tiles(*planes, torch.from_numpy(x_pad), T=T,
+                               n_tile_rows=ct.n_tile_rows).numpy()
+    assert not np.isfinite(want).all()
+    acc = torch.zeros((ct.n_tile_rows * T, p), device=cuda)
+    xp = torch.from_numpy(x_pad).to(cuda)
+    dev = [a.to(cuda) for a in planes]
+    for s in range(0, ct.n_chunks, 37):
+        meta, rows, cols, v = (a[s:s + 37].contiguous() for a in dev)
+        nv = torch.tensor([meta.shape[0]], dtype=torch.int32, device=cuda)
+        sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, v, xp, acc, T=T,
+                                variant=variant)
+    one_shot = sem_spmm.spmm_tiles(*dev, xp, T=T, n_tile_rows=ct.n_tile_rows,
+                                   variant=variant)
+    np.testing.assert_array_equal(acc.cpu().numpy(), want)
+    np.testing.assert_array_equal(one_shot.cpu().numpy(), want)
+
+
 # -- K2 with a bfloat16 operand ---------------------------------------------
 @pytest.mark.parametrize("variant", ["gather", "mxu"])
 def test_one_shot_bf16(cuda, variant):
@@ -505,22 +546,38 @@ def _randn(gen, shape, cuda, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device=cuda).to(dtype)
 
 
-@pytest.mark.parametrize("B,L,H,KV,hd,causal,softcap", [
-    (1, 256, 4, 4, 64, True, 0.0),
-    (2, 256, 8, 2, 64, True, 0.0),
-    (1, 512, 4, 1, 128, True, 0.0),
-    (1, 128, 2, 2, 32, True, 0.0),
-    (2, 128, 4, 2, 16, True, 0.0),       # reduced Zamba2-7B, G = 2
-    (1, 256, 2, 2, 64, False, 30.0),
-    (2, 2048, 32, 32, 112, True, 0.0),   # Zamba2-7B's prefill
+@pytest.mark.parametrize("B,L,H,KV,hd,causal,softcap,S", [
+    (1, 256, 4, 4, 64, True, 0.0, 0),
+    (2, 256, 8, 2, 64, True, 0.0, 0),
+    (1, 512, 4, 1, 128, True, 0.0, 0),
+    (1, 128, 2, 2, 32, True, 0.0, 0),
+    (2, 128, 4, 2, 16, True, 0.0, 0),       # reduced Zamba2-7B, G = 2
+    (1, 256, 2, 2, 64, False, 30.0, 0),
+    (2, 2048, 32, 32, 112, True, 0.0, 0),   # Zamba2-7B's prefill
+    # hd padded to the next multiple of 8 (none, or up to 7 columns)
+    (1, 256, 2, 2, 8, True, 0.0, 0),
+    (1, 256, 2, 2, 48, True, 0.0, 0),
+    (2, 192, 4, 2, 80, True, 0.0, 0),
+    (1, 256, 2, 1, 120, True, 0.0, 0),
+    (1, 128, 2, 2, 100, True, 0.0, 0),
+    (1, 128, 2, 2, 6, True, 0.0, 0),       # 4-byte copies: hd % 4 != 0
+    # S != L, non-causal: more keys than queries, and a ragged last tile
+    (2, 256, 4, 4, 64, False, 0.0, 384),
+    (1, 384, 2, 2, 112, False, 0.0, 200),
+    (2, 256, 8, 2, 64, True, 20.0, 0),      # G = 4 with softcap
+    # L a multiple of the blocks (32) but not of a block's query rows
+    (1, 160, 4, 4, 112, True, 0.0, 0),
 ])
-def test_flash_kernel_matches_plain(cuda, B, L, H, KV, hd, causal, softcap):
-    """Float32 at the reference's tolerance (2e-4), one launch a call."""
+def test_flash_kernel_matches_plain(cuda, B, L, H, KV, hd, causal, softcap,
+                                    S):
+    """Float32 at the reference's tolerance (2e-4), one launch a call; S = 0
+    means S = L."""
+    S = S or L
     gen = torch.Generator(cuda).manual_seed(L + H + hd)
     q = _randn(gen, (B, L, H, hd), cuda)
-    k, v = (_randn(gen, (B, L, KV, hd), cuda) for _ in range(2))
+    k, v = (_randn(gen, (B, S, KV, hd), cuda) for _ in range(2))
     before = k3.LAUNCHES["flash_attention"]
-    blocks = dict(Bq=min(256, L), Bk=min(256, L))
+    blocks = dict(Bq=math.gcd(L, 256), Bk=math.gcd(S, 256))
     got = k3.flash_attention(q, k, v, causal=causal, softcap=softcap,
                              **blocks)
     assert k3.LAUNCHES["flash_attention"] - before == 1
