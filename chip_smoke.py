@@ -20,7 +20,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. kernels: the gather chunk-batch kernel (K1a) and its one-shot use (K2)
    against their plain versions at the main path's shapes (256-chunk
    batches of the real stores, p = 8): bit for bit on integer-valued data,
-   to 1e-5 on normal data; times from CUDA events;
+   to 1e-5 on normal data; the main store's middle batch on sentinel and
+   -0.0 accumulators, bit for bit with signs; times from CUDA events at
+   p = 8 and at PageRank's p = 1, with their times before the kernel's
+   redesign beside them; K1a and K2 within their limits at p = 8 and
+   faster than ``torch.sparse.mm``;
 4b. densify kernels: the same for the densify kernel (K1b) and its one-shot
    use (K2 mxu) on the densify cell's stores at p = 16, with their times
    before the kernel's redesign beside the new ones; K1b within its limit
@@ -92,16 +96,27 @@ TM, CM, PM = 2048, 256, 16      # the densify cell: tile, chunk, operand width
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores
-# The densify kernel's times before its redesign (PERF.md section 6, the
-# kernel table's "before" times; NVIDIA H100 80GB HBM3 at 700 W): K1b per
-# 256-chunk batch of the densify cell, K2 mxu over its whole matrix.
-BEFORE_MS = {"K1b": 0.13048640251159668, "K2 mxu": 55.707275390625}
+# Each chunk-batch kernel's times before its redesign (PERF.md section 6,
+# the kernel table's "before" times; NVIDIA H100 80GB HBM3 at 700 W): K1b
+# per 256-chunk batch of the densify cell, K2 mxu over its whole matrix;
+# K1a per middle raw valued batch of the main store and K2 over the main
+# path's whole matrix, at p = 8 (this script's last run before the gather
+# kernel's redesign) and p = 1 (kernels/tune_gather.py --source on the
+# kernel before it).
+BEFORE_MS = {"K1b": 0.13048640251159668, "K2 mxu": 55.707275390625,
+             "K1a": 0.020927999019622803, "K2": 4.263827133178711,
+             "K1a p=1": 0.013077759742736816, "K2 p=1": 4.082860946655273}
 # K3's time per call before its redesign (the CUDA-core kernel, PERF.md
 # section 6; NVIDIA H100 80GB HBM3 at 700 W), at the same shape.
 K3_BEFORE_MS = 4.009308624267578
 # K1b's limit per 256-chunk batch of the densify cell (a quarter of the
 # before time, PERF.md section 6); it must also beat torch.sparse.mm.
 K1B_LIMIT_MS = 0.033
+# K1a's limit per middle raw valued batch of the main store and K2's over
+# the main path's whole matrix, both at p = 8: three quarters of the times
+# before the gather kernel's redesign; each must also beat torch.sparse.mm.
+K1A_LIMIT_MS = 0.0157
+K2_LIMIT_MS = 3.20
 # Kernel vs plain on non-integer data, relative to the terms' magnitude:
 # see check_float.
 FLOAT_TOL = 1e-5
@@ -255,12 +270,16 @@ def lane_work(meta, n_valid, rows, cols, vals, T_=T):
 
 
 def batch_bound(meta, n_valid, rows, cols, vals, p, T_=T):
-    """Least time for one batch (K1a): the planes' live bytes, each X row
-    the live lanes name read once, each accumulator row they update read
-    and written once; 2 flops per live lane and column."""
+    """Least time for one batch (K1a and K1b alike): the planes' live bytes,
+    each X row the live lanes name read once, every element of the tile
+    rows the valid chunks visit read once (the +0.0 rule reads them all),
+    each accumulator row the lanes update written once; 2 flops per live
+    lane and column."""
     plane_bytes, in_rows, out_rows, n_live = lane_work(
         meta, n_valid, rows, cols, vals, T_)
-    return bound(plane_bytes + 4 * p * (in_rows + 2 * out_rows),
+    nv = int(n_valid.reshape(-1)[0])
+    visited = int(torch.unique(meta[:nv, 0]).numel())
+    return bound(plane_bytes + 4 * p * (in_rows + visited * T_ + out_rows),
                  2 * n_live * p)
 
 
@@ -406,27 +425,59 @@ def run_kernel_phase(stores, ct, rng, dev):
         if name == "raw u16, valued":   # the main path's plane type
             records["K1a"] = time_batch("gather", meta, nv, rows, cols,
                                         vals, x_pad, acc0, diff)
-    # untouched tile rows keep their sentinels
+            # PageRank's width, on the same batch
+            x1 = operand(header["n_cols"], 1, rng, False, dev)
+            a1 = torch.zeros((n_acc, 1), device=dev)
+            got = sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x1,
+                                          a1.clone(), T=T)
+            want = sem_spmm.spmm_tiles_acc_plain(meta, nv, rows, cols, vals,
+                                                 x1, a1.clone(), T=T)
+            rel = check_float("gather", "K1a p = 1", meta, nv, rows, cols,
+                              vals, x1, got, want, T)
+            records["K1a p=1"] = time_batch(
+                "gather", meta, nv, rows, cols, vals, x1, a1,
+                float((got - want).abs().max()), label="K1a p = 1")
+            log(f"K1a p = 1: at most {rel} of |A|·|x|, limit {FLOAT_TOL}")
+    # untouched tile rows keep their content; a visited tile row's rows
+    # without entries take + 0.0, so -0.0 there turns +0.0 as in the plain
+    # version (and the reference): the main store's middle batch
     binst = stores["bin"]
-    s = (binst.n_chunks // 3 // BATCH) * BATCH
+    s = (binst.n_chunks // 2 // BATCH) * BATCH
     n = min(BATCH, binst.n_chunks - s)
     meta, rows, cols, vals = planes_on(binst.read_batch_raw(s, n), dev)
     nv = torch.tensor([n], dtype=torch.int32, device=dev)
     x_pad = operand(header["n_cols"], P, rng, True, dev)
-    sentinel = torch.full((n_acc, P), 1.0e6, device=dev)
-    got = sentinel.clone()
-    sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, got, T=T)
-    want = sem_spmm.spmm_tiles_acc_plain(meta, nv, rows, cols, vals, x_pad,
-                                         sentinel.clone(), T=T)
-    check(torch.equal(got, want), "K1a sentinel accumulator: bitwise")
     touched = torch.zeros(n_acc // T, dtype=torch.bool, device=dev)
     touched[meta[:, 0].long()] = True
-    blocks = got.view(-1, T, P)
-    check(bool((blocks[~touched] == 1.0e6).all()),
-          "K1a leaves untouched tile rows' sentinels alone")
-    log(f"K1a sentinel accumulator: {int((~touched).sum())} untouched tile "
-        "rows kept bit for bit")
+    for fill in (1.0e6, -0.0):
+        start = torch.full((n_acc, P), fill, device=dev)
+        got = start.clone()
+        sem_spmm.spmm_tiles_acc(meta, nv, rows, cols, vals, x_pad, got, T=T)
+        want = sem_spmm.spmm_tiles_acc_plain(meta, nv, rows, cols, vals,
+                                             x_pad, start.clone(), T=T)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K1a accumulator filled with {fill}: bitwise, signs included")
+        blocks = got.view(-1, T, P)
+        check(torch.equal(blocks[~touched].view(torch.int32),
+                          start.view(-1, T, P)[~touched].view(torch.int32)),
+              f"K1a leaves untouched tile rows' {fill} alone")
+        log(f"K1a accumulator filled with {fill}: bitwise with signs, "
+            f"{int((~touched).sum())} untouched tile rows kept, "
+            f"{int(touched.sum())} visited")
     records["K2"] = run_k2(ct, rng, dev)
+    records["K2 p=1"] = run_k2(ct, rng, dev, p=1, label="K2 p = 1")
+    for key, limit in (("K1a", K1A_LIMIT_MS), ("K2", K2_LIMIT_MS)):
+        r = records[key]
+        check(r["ms"] <= limit and r["ms"] < r["library_ms"],
+              f"{key} within {limit} ms at p = {P} and faster than "
+              f"torch.sparse.mm: {r['ms']} ms against {r['library_ms']} ms")
+    for key in ("K1a", "K1a p=1", "K2", "K2 p=1"):
+        r = records[key]
+        log(f"{key}: {r['ms']} ms (before the redesign: {BEFORE_MS[key]} ms,"
+            f" {BEFORE_MS[key] / r['ms']:.2f}x), torch.sparse.mm "
+            f"{r['library_ms']} ms ({r['ms'] / r['library_ms']:.3f}x its "
+            f"time), bound {r['bound_ms']} ms ({r['ms'] / r['bound_ms']:.1f}x"
+            f" the bound)")
     return records
 
 
@@ -1566,6 +1617,8 @@ def main() -> int:
     log("phases: " + ", ".join(phases))
 
     src = "src/repro_torch/kernels/csrc/"
+    # K1a and K2 are timed at the engine cell's p = 8 (the row's numbers)
+    # and at PageRank's p = 1 (under "p1"); their launches are PageRank's
     meta = {
         "K1a": dict(name="spmm_tiles_acc (K1a, gather)",
                     source=src + "sem_spmm.cu",
@@ -1600,6 +1653,11 @@ def main() -> int:
             max_abs_diff=r["max_abs_diff"], max_abs_err=r["max_abs_diff"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if f"{key} p=1" in records:
+            r1 = records[f"{key} p=1"]
+            kernels[-1].update(p=P, p1={k: r1[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_diff")})
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel ran on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

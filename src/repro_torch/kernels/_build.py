@@ -80,12 +80,13 @@ def build_all() -> Dict[str, BuildInfo]:
 
 
 _P, _I, _Q, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# The chunk-batch kernels share one signature (sem_spmm.cu).
+# The chunk-batch kernels' signature (sem_spmm_mxu.cu); the gather kernel's
+# adds an int, ``fresh``, before the stream (sem_spmm.cu).
 _BATCH = [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _Q, _I, _I, _I, _I,
           _P]
 # C signature of each source's entry point.
 _ENTRIES = {
-    "sem_spmm": ("sem_spmm_batch", _BATCH),
+    "sem_spmm": ("sem_spmm_batch", _BATCH[:-1] + [_I, _P]),
     "sem_spmm_mxu": ("sem_spmm_mxu_batch", _BATCH),
     "flash_attention": ("flash_attention_fwd", [_P, _P, _P, _P, _I, _I, _I,
                                                 _I, _I, _I, _I, _F, _F, _I,

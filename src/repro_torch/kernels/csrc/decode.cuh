@@ -1,6 +1,7 @@
 // Lane decode shared by the chunk-batch kernels (sem_spmm.cu, the gather
 // kernel, and sem_spmm_mxu.cu, the densify kernel), so both read a chunk's
-// index lanes integer for integer alike.
+// index lanes integer for integer alike; with the helpers both use around
+// it (operand widening, the bfloat16 epilogue, vector reductions).
 //
 // Mirrors the JAX package's repro/kernels/sem_spmm.py::_decode_lanes:
 //   * uint16 / int32 planes are upcast, for the live lanes i < nnz;
@@ -44,6 +45,19 @@ inline cudaError_t write_bf16(const void* acc, void* out, long long n,
         static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(out), n);
   }
   return cudaGetLastError();
+}
+
+// out[0:n] += v[0:n] (n <= 4): one vector reduction (red.global.add.v4.f32,
+// atomicAdd on a float4 on sm_90) where n == 4 and the address is 16-byte
+// aligned (vec), scalar reductions otherwise.
+__device__ __forceinline__ void add4(float* out, const float (&v)[4], int n,
+                                     bool vec) {
+  if (vec && n == 4) {
+    atomicAdd(reinterpret_cast<float4*>(out),
+              make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+  for (int e = 0; e < n; ++e) atomicAdd(out + e, v[e]);
 }
 
 // Exclusive prefix sum over the block of one value per thread: a warp

@@ -155,17 +155,6 @@ __device__ __forceinline__ void route(const Term& term, int a, int b,
       }
 }
 
-// out[0:4] += v, one vector reduction where the address allows it.
-__device__ __forceinline__ void add4(float* out, const float (&v)[4], int n,
-                                     bool vec) {
-  if (vec && n == 4) {
-    atomicAdd(reinterpret_cast<float4*>(out),
-              make_float4(v[0], v[1], v[2], v[3]));
-    return;
-  }
-  for (int e = 0; e < n; ++e) atomicAdd(out + e, v[e]);
-}
-
 // The tile row of a neighbour of chunk g, for the +0.0 sweep: lane i <
 // kSweepSlices of each warp loads chunk g - 1 - i's, lane kSweepSlices + i
 // chunk g + 1 + i's (-1 outside the batch's valid chunks).  Loaded early,

@@ -13,14 +13,13 @@ from repro_torch.kernels.sem_spmm import spmm_tiles, spmm_tiles_acc
 # Largest tile size up to which the densify kernel (K1b) beats the gather
 # kernel (K1a) on the H100; 0: at no such bound.  The crossover table in
 # PERF.md (section 6, measured by chip_smoke.py phase 4c on an H100 80GB
-# HBM3 at 700 W, after the densify kernel's redesign): on 256-chunk
-# batches (C = 256, p = 1, 8, 16) the gather kernel won every cell at
-# T = 256 ... 2048, by 1.3x to 2.3x; the densify kernel won every cell at
-# T = 4096 ... 16384, where those chunks are nearly full, by up to 1.3x;
-# on the main path's store (T = 16384, C = 2048, a quarter of the lanes
-# live) the gather kernel won by 1.5x to 3.3x.  A bound on T alone cannot send the
-# large tiles one way and the small ones the other, and the main path's
-# tiles go to the gather kernel either way.
+# HBM3 at 700 W, after the gather kernel's redesign): on 256-chunk batches
+# (C = 256, p = 1, 8, 16) the gather kernel won 20 of the 21 cells at
+# T = 256 ... 16384, by up to 2.4x, and lost the one at T = 256, p = 16 by
+# 9%; on the main path's store (T = 16384, C = 2048, a quarter of the
+# lanes live) it won by 3.6x to 7.7x.  No bound on T sends a tile size to
+# the densify kernel on every width, and the main path's tiles go to the
+# gather kernel either way.
 MXU_MAX_T = 0
 
 

@@ -6,10 +6,12 @@ plain PyTorch version beside it.
   running accumulator, in place: ``acc (n_tile_rows*T, p) += A_batch @
   x_pad``.  Chunks at or past ``n_valid`` are the engine's fixed-shape tail
   pads and are skipped; tile rows the batch does not visit are left as they
-  are; a binary store ships no value plane (a lane is live iff its index is
-  below the chunk's nnz).  Index planes arrive as stored: uint16 (as int16
-  bits), int32 (host-decoded), or an optimized store's uint8 flattened-key
-  deltas, decoded from the bases in ``meta`` columns 4/5.
+  are, and a visited one holds no -0.0 afterwards (the reference adds a
+  block that starts at +0.0 into it); a binary store ships no value plane
+  (a lane is live iff its index is below the chunk's nnz).  Index planes
+  arrive as stored: uint16 (as int16 bits), int32 (host-decoded), or an
+  optimized store's uint8 flattened-key deltas, decoded from the bases in
+  ``meta`` columns 4/5.
 * :func:`spmm_tiles` is the one-shot ``A @ X`` over a whole ChunkedTiles:
   the same kernel on a zeroed accumulator with ``n_valid = n_chunks``.  Its
   operand may be bfloat16, as the reference's may: the kernel widens each
@@ -20,7 +22,9 @@ plain PyTorch version beside it.
 Each takes one of two variants, as the JAX package's kernels do:
 
 * ``"gather"`` (``csrc/sem_spmm.cu``): each live lane's X row is gathered,
-  scaled and added into its output row; O(nnz * p) work.
+  scaled and added into its output row, each run of a row's lanes summed
+  in the warp and added by one vector reduction per 4 columns, and the
+  visited tile rows read for -0.0; O(nnz * p) work.
 * ``"mxu"`` (``csrc/sem_spmm_mxu.cu``): each chunk's two one-hot products,
   ``E_rᵀ · (v ⊙ (E_c · X_blk))``, applied only where they have ones: E_c
   as a gather of the X rows the live lanes name, E_rᵀ on the tensor cores
@@ -117,7 +121,11 @@ def _decode_lanes(meta: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 def spmm_tiles_acc_plain(meta, n_valid, row_local, col_local, vals, x_pad,
                          acc, *, T: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same contract: decode, gather
-    the live lanes of the valid chunks, ``index_add_`` into ``acc``."""
+    the live lanes of the valid chunks, ``index_add_`` into ``acc``, then
+    +0.0 over every tile row a valid chunk visits.  That last step is the
+    reference's ``acc + blk`` with a block that starts at +0.0
+    (``core/sem.py::_scan_batch``): no element of a visited tile row stays
+    -0.0, and every other value, NaN and inf included, is unchanged."""
     nv = int(n_valid.reshape(-1)[0])
     meta, x_pad = meta[:nv], x_pad.float()
     r, c = _decode_lanes(meta, row_local[:nv], col_local[:nv], T)
@@ -129,7 +137,9 @@ def spmm_tiles_acc_plain(meta, n_valid, row_local, col_local, vals, x_pad,
     gathered = x_pad[in_rows]
     if vals is not None:
         gathered = vals[:nv][live][:, None] * gathered
-    return acc.index_add_(0, out_rows, gathered)
+    acc.index_add_(0, out_rows, gathered)
+    acc.view(-1, T, acc.shape[1])[torch.unique(m[:, 0])] += 0.0
+    return acc
 
 
 def spmm_tiles_acc_mxu_plain(meta, n_valid, row_local, col_local, vals,
@@ -225,27 +235,31 @@ def _check(meta, n_valid, row_local, col_local, vals, x_pad, acc,
 
 
 def _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc,
-            T: int, variant: str, out: Optional[torch.Tensor]) -> None:
+            T: int, variant: str, out: Optional[torch.Tensor],
+            fresh: bool) -> None:
     """Launch the variant's CUDA kernel on the current stream; raise if
     refused.  With ``out`` (bfloat16, the size of ``acc``) the kernel also
-    writes the finished sums there."""
+    writes the finished sums there.  ``fresh`` tells the gather kernel that
+    ``acc`` is the one-shot product's zeroed accumulator, where the +0.0
+    rule has nothing to do."""
     planes = (meta, n_valid, row_local, col_local, vals, x_pad, acc, out)
     if not all(t is None or t.is_contiguous() for t in planes):
         raise ValueError("the kernel takes contiguous tensors only")
     n, C = row_local.shape
-    entry = (library("sem_spmm").sem_spmm_batch if variant == "gather"
-             else library("sem_spmm_mxu").sem_spmm_mxu_batch)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    with torch.cuda.device(acc.device):
-        err = entry(
-            meta.data_ptr(), meta.shape[1], n_valid.data_ptr(),
+    args = (meta.data_ptr(), meta.shape[1], n_valid.data_ptr(),
             row_local.data_ptr(), _IDX_BYTES[row_local.dtype],
             col_local.data_ptr(), _IDX_BYTES[col_local.dtype],
             None if vals is None else vals.data_ptr(), x_pad.data_ptr(),
             int(x_pad.dtype == torch.bfloat16), acc.data_ptr(),
             None if out is None else out.data_ptr(),
-            0 if out is None else out.numel(), n, C, T, x_pad.shape[1],
-            stream)
+            0 if out is None else out.numel(), n, C, T, x_pad.shape[1])
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    with torch.cuda.device(acc.device):
+        if variant == "gather":
+            err = library("sem_spmm").sem_spmm_batch(*args, int(fresh),
+                                                     stream)
+        else:
+            err = library("sem_spmm_mxu").sem_spmm_mxu_batch(*args, stream)
     if err != 0:
         raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
 
@@ -256,7 +270,8 @@ def _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T: int,
     """Validate, then run the variant's plain version on the CPU or launch
     its kernel on the card (counted under ``wrapper`` and the variant);
     anything else raises.  Returns ``acc``, or ``out`` holding its sums
-    when given."""
+    when given.  The one-shot ``spmm_tiles`` (``wrapper``) hands the kernel
+    a fresh zeroed accumulator."""
     _check_variant(variant)
     _check(meta, n_valid, row_local, col_local, vals, x_pad, acc, T, variant,
            out is not None)
@@ -267,7 +282,7 @@ def _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T: int,
     if acc.device.type != "cuda":
         raise ValueError(f"no kernel for device {acc.device}")
     _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
-            variant, out)
+            variant, out, wrapper == "spmm_tiles")
     LAUNCHES[wrapper if variant == "gather" else f"{wrapper}_mxu"] += 1
     return acc if out is None else out
 

@@ -151,22 +151,30 @@ def test_kernel_matches_plain_float(cuda, stores):
 
 def test_kernel_skips_pads_and_keeps_untouched_rows(cuda, stores):
     """Chunks at or past n_valid contribute nothing; tile rows the batch
-    does not visit keep their sentinels bit for bit."""
+    does not visit keep their content bit for bit; a visited tile row's
+    rows without entries take + 0.0 (a -0.0 there turns +0.0, as in the
+    reference and the plain version)."""
     st = stores["bin256"]
     T = st.header["T"]
     x = np.ones((st.header["n_cols"], 3), np.float32)
     s, n = st.n_chunks // 3, st.n_chunks // 3
     n_rows = -(-st.header["n_rows"] // T) * T
-    acc0 = torch.full((n_rows, 3), 12345.0, device=cuda)
-    got, want, _ = _run_both(st, s, n, x, cuda, acc0=acc0, n_valid=n - 5)
-    np.testing.assert_array_equal(got, want)
-    meta = st.read_batch_raw(s, n)[0]
-    touched = np.unique(meta[: n - 5, 0])
-    rows = got.reshape(-1, T, 3)
-    untouched = np.setdiff1d(np.arange(rows.shape[0]), touched)
-    assert untouched.size > 0
-    assert (rows[untouched] == 12345.0).all()
-    assert not (rows[touched] == 12345.0).all()
+    for fill in (12345.0, -0.0):
+        acc0 = torch.full((n_rows, 3), fill, device=cuda)
+        got, want, _ = _run_both(st, s, n, x, cuda, acc0=acc0,
+                                 n_valid=n - 5)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+        meta = st.read_batch_raw(s, n)[0]
+        touched = np.unique(meta[: n - 5, 0])
+        rows = got.reshape(-1, T, 3)
+        untouched = np.setdiff1d(np.arange(rows.shape[0]), touched)
+        assert untouched.size > 0
+        np.testing.assert_array_equal(
+            rows[untouched].view(np.uint32),
+            np.full_like(rows[untouched], fill).view(np.uint32))
+        assert not (rows[touched].view(np.uint32)
+                    == np.float32(fill).view(np.uint32)).all()
 
 
 def test_one_shot_kernel_matches_plain(cuda):
@@ -179,6 +187,24 @@ def test_one_shot_kernel_matches_plain(cuda):
     assert sem_spmm.LAUNCHES["spmm_tiles"] - before == 1
     want = spmm_kernel(ct, x, device="cpu").numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p,dtype", [(3, "float32"), (5, "float32"),
+                                     (17, "float32"), (3, "bfloat16"),
+                                     (8, "bfloat16"), (9, "bfloat16")])
+def test_one_shot_many_chunks(cuda, p, dtype):
+    """A one-shot product over more chunks than the gather kernel gives a
+    block per slab of lanes (one block a chunk there), at ragged and
+    4-aligned widths, bit for bit on integer data."""
+    g = rmat(13, 8, seed=5)
+    ct = to_chunked(g, T=256, C=8)
+    assert ct.n_chunks > 4096
+    x = torch.from_numpy(np.random.default_rng(p).integers(
+        -4, 5, (g.n_cols, p)).astype(np.float32)).to(getattr(torch, dtype))
+    before = sem_spmm.LAUNCHES["spmm_tiles"]
+    got = spmm_kernel(ct, x, device=cuda)
+    assert sem_spmm.LAUNCHES["spmm_tiles"] - before == 1
+    assert torch.equal(got.cpu(), spmm_kernel(ct, x, device="cpu"))
 
 
 @pytest.mark.parametrize("name", ["val256", "binopt256", "valopt4096"])
@@ -252,7 +278,7 @@ def test_kernel_is_graph_capturable(cuda, stores):
 
 
 # -- the densify kernel (K1b, and K2-mxu through it) ------------------------
-# Hand-built batches of the densify kernel's corners (raw uint16 planes,
+# Hand-built batches of the chunk-batch kernels' corners (raw uint16 planes,
 # integer values), each ending in two tail pads past n_valid:
 #   hub        every lane of a chunk in one row;
 #   distinct   every live lane in a row of its own;
@@ -300,10 +326,10 @@ def _hand_built(case, rng):
     return (meta, rows, cols, None if binary else vals, len(tiles), T, 3)
 
 
-def _check_hand_built(case, decoded, p, cuda):
-    """A hand-built batch through the kernel and the plain version on a
-    sentinel and on a -0.0 accumulator: bit for bit with signs, tile rows
-    outside the batch untouched."""
+def _check_hand_built(case, decoded, p, cuda, variant="mxu"):
+    """A hand-built batch through the variant's kernel and its plain
+    version on a sentinel and on a -0.0 accumulator: bit for bit with
+    signs, tile rows outside the batch untouched."""
     rng = np.random.default_rng(p)
     meta, rows, cols, vals, nv, T, ntr = _hand_built(case, rng)
     if decoded:
@@ -317,12 +343,13 @@ def _check_hand_built(case, decoded, p, cuda):
     for fill in (12345.0, -0.0):
         acc = torch.full((ntr * T, p), fill, device=cuda)
         plain = acc.clone()
-        before = sem_spmm.LAUNCHES["spmm_tiles_acc_mxu"]
+        key = "spmm_tiles_acc" + ("" if variant == "gather" else "_mxu")
+        before = sem_spmm.LAUNCHES[key]
         sem_spmm.spmm_tiles_acc(meta, n_valid, rows, cols, vals, x_pad, acc,
-                                T=T, variant="mxu")
-        assert sem_spmm.LAUNCHES["spmm_tiles_acc_mxu"] - before == 1
-        sem_spmm.spmm_tiles_acc_mxu_plain(meta, n_valid, rows, cols, vals,
-                                          x_pad, plain, T=T)
+                                T=T, variant=variant)
+        assert sem_spmm.LAUNCHES[key] - before == 1
+        sem_spmm._PLAIN[variant](meta, n_valid, rows, cols, vals, x_pad,
+                                 plain, T=T)
         got = acc.cpu().numpy().reshape(ntr, T, p)
         np.testing.assert_array_equal(
             got.view(np.uint32), plain.cpu().numpy().reshape(
@@ -352,6 +379,36 @@ def test_mxu_kernel_matches_plain_integer(cuda, stores, name, decoded, p):
         got, want, launches = _run_both(st, s, n, x, cuda, decoded=decoded,
                                         variant="mxu")
         np.testing.assert_array_equal(got, want)
+        assert launches == 1
+
+
+@pytest.mark.parametrize("name", ["val256", "bin256", "valopt256",
+                                  "binopt256", "valopt4096", "binopt4096",
+                                  "val4096c1024", "bin200", *HAND_BUILT])
+@pytest.mark.parametrize("decoded", [False, True])
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 8, 9, 16, 17])
+def test_gather_kernel_matches_plain_integer(cuda, stores, name, decoded,
+                                             p):
+    """The gather kernel on every plane type and store shape, p below, at
+    and above one and two groups of 8 columns (ragged widths: scalar loads
+    and reductions; 4-aligned: vector ones), on a -0.0 accumulator, bit
+    for bit with signs, one launch per call; the hand-built batches (a
+    row in several runs, tile rows revisited, C = MXU_MAX_C) also on a
+    sentinel accumulator."""
+    if name in HAND_BUILT:
+        _check_hand_built(name, decoded, p, cuda, variant="gather")
+        return
+    st = stores[name]
+    T = st.header["T"]
+    x = np.random.default_rng(p).integers(
+        -4, 5, (st.header["n_cols"], p)).astype(np.float32)
+    acc0 = torch.full((-(-st.header["n_rows"] // T) * T, p), -0.0,
+                      device=cuda)
+    for s, n in st.batch_plan(37):
+        got, want, launches = _run_both(st, s, n, x, cuda, acc0=acc0,
+                                        decoded=decoded)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
         assert launches == 1
 
 
