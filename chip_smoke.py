@@ -52,11 +52,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels' plain versions) in which every flash-attention (K3) and SSD
    (K4) call also runs the kernel on the same inputs, held elementwise to
    FLOAT_TOL of that call's error scale; both kernels timed on the first
-   calls' inputs, with their bounds (K3's on the tensor cores, at float32
-   accuracy, and on the CUDA cores) and SDPA as K3's yardstick; then the
-   main path, the serving prefill ``model_api.forward(...,
-   logits_last_only=True)`` through the kernels: 13 K3 and 81 K4 launches,
-   finite logits no farther from the plain prefill's than twice the plain
+   calls' inputs, with their bounds (on the tensor cores, at float32
+   accuracy, and on the CUDA cores), their times before their redesigns,
+   and SDPA as K3's yardstick; then the main path, the serving prefill
+   ``model_api.forward(..., logits_last_only=True)`` through the kernels:
+   13 K3 and 81 K4 launches (calls; K4 runs four kernels a call), finite
+   logits no farther from the plain prefill's than twice the plain
    prefill's own spread (the same prefill with K4 at Q = 128), and a traced
    prefill's device time by kind of kernel;
 10. decode against prefill at full width: every layer's decode path on its
@@ -109,6 +110,10 @@ BEFORE_MS = {"K1b": 0.13048640251159668, "K2 mxu": 55.707275390625,
 # K3's time per call before its redesign (the CUDA-core kernel, PERF.md
 # section 6; NVIDIA H100 80GB HBM3 at 700 W), at the same shape.
 K3_BEFORE_MS = 4.009308624267578
+# K4's time per call before its redesign (one block per batch and head on
+# the CUDA cores; this script's last run before it, PERF.md section 6;
+# NVIDIA H100 80GB HBM3 at 700 W), at Zamba2-7B's first Mamba layer.
+K4_BEFORE_MS = 1.4603327751159667
 # K1b's limit per 256-chunk batch of the densify cell (a quarter of the
 # before time, PERF.md section 6); it must also beat torch.sparse.mm.
 K1B_LIMIT_MS = 0.033
@@ -1260,7 +1265,8 @@ def ssd_flops(B, L, H, dh, N, Q) -> int:
 
 
 def time_k4(first, label, card):
-    """K4's times on the first Mamba layer's prefill inputs, its bound."""
+    """K4's times on the first Mamba layer's prefill inputs, its bounds on
+    the tensor cores (the record's) and on the CUDA cores."""
     from repro_torch.kernels import ssd_chunk as k4
     args, kw = first
     x, dt, A, Bm, Cm, D = args
@@ -1272,11 +1278,19 @@ def time_k4(first, label, card):
     flops = ssd_flops(B, L, H, dh, N, kw["Q"])
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
                   + Cm.numel() + D.numel() + B * H * dh * N)
-    bound_ms, bound_by = bound(nbytes, flops)
+    core_ms, _ = bound(nbytes, flops)
+    # at float32 accuracy on the tensor cores: the three-term TF32 split
+    # does each product three times
+    bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    before = (f"; before the redesign {K4_BEFORE_MS} ms, "
+              f"{K4_BEFORE_MS / ms:.2f}x" if label == "zamba2-7b" else "")
     log(f"K4 {label} per call at x {tuple(x.shape)}, N = {N}, Q = "
-        f"{kw['Q']}: {ms} ms (CUDA events, 10 calls), plain {plain_ms} ms; "
-        f"no single PyTorch call computes SSD; bound {bound_ms} ms "
-        f"({bound_by}: {flops / 1e9:.2f} GFLOP float32, {nbytes} B) [{card}]")
+        f"{kw['Q']}: {ms} ms (CUDA events, 10 calls){before}, plain "
+        f"{plain_ms} ms; no single PyTorch call computes SSD; bound on the "
+        f"tensor cores {bound_ms} ms ({bound_by}: 3 x {flops / 1e9:.2f} GFLOP"
+        f" TF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes} B), on the"
+        f" CUDA cores {core_ms} ms (float32 at {FP32_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s) [{card}]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -1302,7 +1316,9 @@ def make_model(arch: str, seed: int, dev):
 
 def prefill_breakdown(prof, secs: float) -> str:
     """Device time of a traced prefill by kind of kernel (K3, K4, matrix
-    products, the rest), the card's busy time and its idle share."""
+    products, the rest), the card's busy time and its idle share.  K4's
+    launches on the card are its four kernels' (ssd_chunk_cbt, _states,
+    _pass, _scan): four a call."""
     spans = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
@@ -1311,7 +1327,7 @@ def prefill_breakdown(prof, secs: float) -> str:
     for e in spans:
         name = e.name.lower()
         kind = ("K3" if "flash_fwd_kernel" in name
-                else "K4" if "ssd_chunk_kernel" in name
+                else "K4" if "ssd_chunk_" in name
                 else "matmul" if "gemm" in name or "cutlass" in name
                 else "other")
         n, us = kinds.get(kind, (0, 0.0))
@@ -1324,6 +1340,7 @@ def prefill_breakdown(prof, secs: float) -> str:
             end = hi
     return (", ".join(f"{k}: {n} launches, {us / 1e3:.3f} ms"
                       for k, (n, us) in sorted(kinds.items()))
+            + " (K4: four kernels a call)"
             + f"; device busy {busy_us / 1e3:.3f} ms of {secs * 1e3:.1f} ms"
             f" (idle {1 - busy_us / 1e6 / secs:.4f})")
 

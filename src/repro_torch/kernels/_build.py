@@ -91,8 +91,7 @@ _ENTRIES = {
     "flash_attention": ("flash_attention_fwd", [_P, _P, _P, _P, _I, _I, _I,
                                                 _I, _I, _I, _I, _F, _F, _I,
                                                 _P]),
-    "ssd_chunk": ("ssd_chunk_fwd", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _P]),
+    "ssd_chunk": ("ssd_chunk_fwd", [_P] * 11 + [_I] * 7 + [_P]),
 }
 
 

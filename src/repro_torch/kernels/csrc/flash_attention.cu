@@ -75,8 +75,6 @@ constexpr int kWarps = 8;                  // warps a block, 16 query rows each
 constexpr int kKeys = 32;                  // keys a staged tile
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;         // query rows a block
-constexpr uint32_t kLBO = 128;             // bytes to the next 4 columns of k
-constexpr uint32_t kSBO = 256;             // bytes to the next 8 rows of n
 
 // Shared memory of a block: the raw K and V tiles (kKeys x hdp floats each,
 // as staged), then the split planes K hi, K lo, V hi, V lo (kKeys x hdp
@@ -128,33 +126,6 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
   }
 }
 
-// The wgmma descriptor of a B operand at p: core matrices of 8 rows of 16
-// bytes, no swizzle, kLBO apart along k and kSBO apart along n.
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kLBO >> 4) << 16)
-         | (static_cast<uint64_t>(kSBO >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins the order of accumulator accesses around asynchronous wgmma: no read
-// or write of d moves across it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e]) :: "memory");
-}
-
 // d0, d1 (the m64n16 accumulator: columns 0-7 and 8-15) += A (m64k8, this
 // warp's 16 rows in registers, the m16n8k8 A fragment) . B (k8n16 at b).
 __device__ __forceinline__ void wgmma16(float (&d0)[4], float (&d1)[4],
@@ -186,8 +157,8 @@ __device__ __forceinline__ void wgmma_row(float (&d)[NT][4],
                                           const uint32_t* p) {
 #pragma unroll
   for (int c = 0; c + 1 < NT; c += 2)
-    wgmma16(d[c], d[c + 1], a, desc(p + c * 64));
-  if constexpr (NT % 2) wgmma8(d[NT - 1], a, desc(p + (NT - 1) * 64));
+    wgmma16(d[c], d[c + 1], a, wgmma_desc(p + c * 64));
+  if constexpr (NT % 2) wgmma8(d[NT - 1], a, wgmma_desc(p + (NT - 1) * 64));
 }
 
 // The raw K tile split into hi and lo planes, each the B operand of S = Q K^T

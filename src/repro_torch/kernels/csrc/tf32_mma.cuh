@@ -1,6 +1,7 @@
-// Float32 products on the tensor cores through TF32, and cp.async staging,
-// shared by the densify kernel (sem_spmm_mxu.cu, mma.sync) and the
-// flash-attention kernel (flash_attention.cu, the same split through wgmma).
+// Float32 products on the tensor cores through TF32, cp.async staging and
+// wgmma's plumbing, shared by the densify kernel (sem_spmm_mxu.cu,
+// mma.sync), the flash-attention kernel (flash_attention.cu, the same split
+// through wgmma) and the SSD chunk scan (ssd_chunk.cu, wgmma).
 //
 // mma.sync m16n8k8 takes TF32 operands (10 mantissa bits) and sums in
 // float32.  A float32 value x splits as hi = tf32(x), lo = tf32(x - hi):
@@ -82,4 +83,34 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+constexpr uint32_t kLBO = 128;   // wgmma B: bytes to the next 4 columns of k
+constexpr uint32_t kSBO = 256;   // wgmma B: bytes to the next 8 rows of n
+
+// The wgmma descriptor of a B operand at p: core matrices of 8 rows of 16
+// bytes, no swizzle, kLBO apart along k and kSBO apart along n.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kLBO >> 4) << 16)
+         | (static_cast<uint64_t>(kSBO >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins the order of accumulator accesses around asynchronous wgmma: no read
+// or write of d moves across it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e]) :: "memory");
 }

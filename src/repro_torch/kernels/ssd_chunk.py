@@ -5,9 +5,11 @@ plain PyTorch version beside it.
 :func:`ssd_chunked` is the counterpart of the JAX package's
 ``ssd_chunked_tpu``: x (B, L, H, dh), dt (B, L, H), A (H,), B and C
 (B, L, N) shared by the heads, D (H,); L % Q == 0.  It returns y (B, L, H,
-dh) in x's dtype and the final state (B, H, dh, N) in float32.  It launches
-the kernel for tensors on the card (counted in ``LAUNCHES``) and runs the
-plain version for tensors on the CPU; anything else raises.
+dh) in x's dtype and the final state (B, H, dh, N) in float32.  For
+tensors on the card it launches the kernel (four launches on the card a
+call, counted once in ``LAUNCHES``) with workspaces it allocates
+(:func:`workspace_shapes`); for tensors on the CPU it runs the plain
+version; anything else raises.
 
 :func:`ssd_scan` is the plain version, written from the Pallas body: per
 chunk of Q rows the decay ``exp(segsum(dt*A))`` (never exponentiated above
@@ -96,6 +98,17 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, D, *, Q: int = 128
     return ssd_scan(x, dt, A, Bm, Cm, D, Q=Q)
 
 
+def workspace_shapes(B: int, L: int, H: int, dh: int, N: int, Q: int):
+    """The kernel's float32 workspaces (csrc/ssd_chunk.cu): C Bᵀ per
+    (batch, chunk), (B, nc, QP, QP); each chunk's own state, then the state
+    it carries in, transposed, (B, H, nc, NP, DHP); cum and dt, (B, H, nc,
+    QP, 2).  QP is Q rounded up to 64, DHP dh up to 16, NP N up to 8, nc =
+    L / Q."""
+    nc = L // Q
+    QP, DHP, NP = (-(-v // m) * m for v, m in ((Q, 64), (dh, 16), (N, 8)))
+    return (B, nc, QP, QP), (B, H, nc, NP, DHP), (B, H, nc, QP, 2)
+
+
 def _check(x, dt, A, Bm, Cm, D, Q: int) -> None:
     """Raise on anything the kernel does not take."""
     if x.dim() != 4:
@@ -136,11 +149,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, Q: int = 128
         raise ValueError("the kernel takes contiguous tensors only")
     y = torch.empty_like(x)
     state = torch.empty((Bb, H, dh, N), dtype=torch.float32, device=x.device)
+    work = [torch.empty(shape, dtype=torch.float32, device=x.device)
+            for shape in workspace_shapes(Bb, L, H, dh, N, Q)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = library("ssd_chunk").ssd_chunk_fwd(
-            *(t.data_ptr() for t in ins), y.data_ptr(), state.data_ptr(), Bb,
-            L, H, dh, N, Q, int(x.dtype == torch.bfloat16), stream)
+            *(t.data_ptr() for t in (*ins, y, state, *work)), Bb, L, H, dh,
+            N, Q, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"SSD chunk kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd_chunked"] += 1

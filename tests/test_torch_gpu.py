@@ -654,6 +654,24 @@ def test_flash_kernel_bf16(cuda):
 
 
 # -- K4: the SSD chunk scan --------------------------------------------------
+def _ssd_inputs(cuda, B, L, H, dh, N, dtype=torch.float32, dt_scale=None):
+    """Normal x, B, C, D; dt uniform in [0.001, 0.1) and A in (-2, -0.5]
+    (the reference tests' ranges), or, with ``dt_scale``, dt = softplus of
+    a normal times it and A = -1 (the models' default init at 1)."""
+    gen = torch.Generator(cuda).manual_seed(L + H + N)
+    x = _randn(gen, (B, L, H, dh), cuda, dtype)
+    if dt_scale is None:
+        dt = torch.rand((B, L, H), generator=gen, device=cuda) * 0.099 + 0.001
+        A = -(torch.rand((H,), generator=gen, device=cuda) * 1.5 + 0.5)
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(
+            (B, L, H), generator=gen, device=cuda)) * dt_scale
+        A = -torch.ones((H,), device=cuda)
+    Bm, Cm = (_randn(gen, (B, L, N), cuda, dtype) for _ in range(2))
+    D = _randn(gen, (H,), cuda)
+    return x, dt, A, Bm, Cm, D
+
+
 @pytest.mark.parametrize("B,L,H,dh,N,Q", [
     (1, 256, 2, 32, 16, 128),
     (2, 256, 4, 64, 32, 128),
@@ -662,21 +680,66 @@ def test_flash_kernel_bf16(cuda):
     (2, 128, 16, 8, 16, 128),        # reduced Zamba2-7B
     (2, 2048, 112, 64, 64, 256),     # Zamba2-7B's prefill
     (2, 2048, 24, 64, 128, 256),     # Mamba2-130M's prefill
+    (1, 256, 3, 24, 40, 256),        # L = Q; dh, N no multiples of 16
+    (1, 2048, 2, 64, 64, 128),       # nc = 16
+    (2, 288, 2, 24, 72, 96),         # Q no multiple of the 64-row tiles
+    (1, 192, 2, 6, 5, 64),           # rows no multiple of 16 bytes
 ])
 def test_ssd_kernel_matches_plain(cuda, B, L, H, dh, N, Q):
     """Float32 at the reference's tolerance (2e-4), one launch a call."""
-    gen = torch.Generator(cuda).manual_seed(L + H + N)
-    x = _randn(gen, (B, L, H, dh), cuda)
-    dt = torch.rand((B, L, H), generator=gen, device=cuda) * 0.099 + 0.001
-    A = -(torch.rand((H,), generator=gen, device=cuda) * 1.5 + 0.5)
-    Bm, Cm = (_randn(gen, (B, L, N), cuda) for _ in range(2))
-    D = _randn(gen, (H,), cuda)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, B, L, H, dh, N)
     before = k4.LAUNCHES["ssd_chunked"]
     y, s = k4.ssd_chunked(x, dt, A, Bm, Cm, D, Q=Q)
     assert k4.LAUNCHES["ssd_chunked"] - before == 1
     y_p, s_p = k4.ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=Q)
     torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_kernel_bf16(cuda, N):
+    """bfloat16 x, B, C against the plain version on the same bfloat16
+    inputs (which widens them and sums in float32 too).  y is compared in
+    bfloat16 at 1e-2: the two float32 results may round to neighbouring
+    bfloat16 values (8 significant bits: an ulp is at most 2**-7
+    relative); the float32 state at the float32 tolerance (2e-4)."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, 2, 512, 4, 64, N, torch.bfloat16)
+    y, s = k4.ssd_chunked(x, dt, A, Bm, Cm, D, Q=256)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    y_p, s_p = k4.ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=256)
+    torch.testing.assert_close(y, y_p, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_strong_decay(cuda):
+    """dt about 0.7 and A = -1 (the models' default init): cum passes -88
+    inside every 256-row chunk, so exp(cum) underflows to 0 there while
+    exp(cum_i - cum_j) near the diagonal does not; y and the state are
+    finite and equal the plain version's.  B and C are scaled by N**-0.5,
+    so C·B is of order 1 as in the models: each weight carries the float32
+    rounding of two cumulative sums near -200 (an ulp is 1.5e-5), taken in
+    other orders by the kernel's scan and torch.cumsum, relative to the
+    terms it scales."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, 2, 1024, 4, 64, 64, dt_scale=1.0)
+    Bm, Cm = Bm / 8.0, Cm / 8.0
+    cum = torch.cumsum((dt * A).reshape(2, 4, 256, 4), dim=2)
+    assert float(cum.min()) < -88.0
+    y, s = k4.ssd_chunked(x, dt, A, Bm, Cm, D, Q=256)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    y_p, s_p = k4.ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=256)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_repeats_bit_for_bit(cuda):
+    """No atomics: two calls on the same inputs give the same bits, so a
+    stale or shared workspace would show; a call at another shape between
+    them reuses the freed workspaces."""
+    ins = _ssd_inputs(cuda, 2, 512, 8, 64, 128)
+    y1, s1 = k4.ssd_chunked(*ins, Q=256)
+    k4.ssd_chunked(*_ssd_inputs(cuda, 1, 256, 3, 24, 40), Q=128)
+    y2, s2 = k4.ssd_chunked(*ins, Q=256)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.parametrize("arch,k3_calls,k4_calls", [

@@ -1,7 +1,9 @@
 """The port's SSD chunked scan (K4) on the CPU: its plain version against the
 JAX package's Pallas kernel in interpret mode and the reference's jnp scan,
-chunk invariance, the hand-off of the final state to the decode step, and
-the port's ``models/ssm.py::ssd_chunked`` with a carried-in state.
+the kernel's chunk-parallel decomposition (``csrc/ssd_chunk.cu``, written
+here in plain torch) against both, chunk invariance, the hand-off of the
+final state to the decode step, and the port's ``models/ssm.py::
+ssd_chunked`` with a carried-in state.
 
 Tolerance is the reference's own (``tests/test_ssd_kernel.py``):
 ``rtol = atol = 2e-4``, ``1e-4`` for chunk invariance and ``2e-3`` for the
@@ -60,6 +62,71 @@ def test_plain_matches_pallas_and_jnp(B, L, H, dh, N, Q):
                                    atol=TOL)
         np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=TOL,
                                    atol=TOL)
+
+
+def _decomposed(x, dt, A, Bm, Cm, D, Q):
+    """The CUDA kernel's four steps in plain torch, float32: (a) C Bᵀ once
+    per (batch, chunk); (b) cum and each chunk's own state U_c = Σ_j
+    exp(total - cum_j) dt_j x_j B_jᵀ; (c) the states carried in, s_c =
+    exp(total_{c-1}) s_{c-1} + U_{c-1} from s_0 = 0, and the final state;
+    (d) y = (G ⊙ W) x + exp(cum_i) C_i s_cᵀ + D x with W_ij = exp(cum_i -
+    cum_j) dt_j below the diagonal (0 above it before any exp)."""
+    Bb, L, H, dh = x.shape
+    N, nc = Bm.shape[-1], L // Q
+    xq = x.reshape(Bb, nc, Q, H, dh)
+    dtq = dt.reshape(Bb, nc, Q, H)
+    bq, cq = Bm.reshape(Bb, nc, Q, N), Cm.reshape(Bb, nc, Q, N)
+    G = cq @ bq.transpose(-1, -2)                                  # (a)
+    cum = torch.cumsum(dtq * A, dim=2)                             # (b)
+    total = cum[:, :, -1]                                          # (B, nc, H)
+    w = torch.exp(total[:, :, None] - cum) * dtq
+    U = torch.einsum("bcjh,bcjhd,bcjn->bchdn", w, xq, bq)
+    s_in, s = [], torch.zeros((Bb, H, dh, N))                      # (c)
+    for c in range(nc):
+        s_in.append(s)
+        s = torch.exp(total[:, c])[..., None, None] * s + U[:, c]
+    lower = torch.tril(torch.ones((Q, Q), dtype=torch.bool))[..., None]
+    diff = cum[:, :, :, None] - cum[:, :, None, :]                 # (d)
+    W = torch.where(lower, torch.exp(torch.where(lower, diff, 0.0)), 0.0) \
+        * dtq[:, :, None]                                          # b c i j h
+    y = (torch.einsum("bcij,bcijh,bcjhd->bcihd", G, W, xq)
+         + torch.exp(cum)[..., None]
+         * torch.einsum("bcin,bchdn->bcihd", cq, torch.stack(s_in, 1))
+         + D[:, None] * xq)
+    return y.reshape(Bb, L, H, dh), s
+
+
+@pytest.mark.parametrize("B,L,H,dh,N,Q,strong", [
+    (1, 256, 2, 32, 16, 128, False),
+    (2, 256, 3, 24, 40, 64, False),    # dh, N no multiples of 16
+    (1, 128, 1, 16, 8, 128, False),    # single chunk
+    (1, 512, 2, 16, 8, 256, True),     # cum passes -88 inside each chunk
+])
+def test_decomposition_matches_pallas_and_plain(B, L, H, dh, N, Q, strong):
+    """The kernel's algebra, carried-in states included, at the reference's
+    tolerance.  ``strong``: dt about 0.7 and A = -1 (the models' default
+    init), so exp(cum) underflows to 0 inside every chunk while the
+    weights near the diagonal do not; B and C are scaled by N**-0.5 there,
+    so C·B is of order 1 and each weight's float32 rounding of two
+    cumulative sums near -200 (the sides' scans add in other orders) stays
+    within the tolerance."""
+    ins = list(_inputs(B, L, H, dh, N, seed=L + H + N))
+    if strong:
+        rng = np.random.default_rng(3)
+        ins[1] = np.log1p(np.exp(rng.standard_normal((B, L, H)))).astype(
+            np.float32)
+        ins[2] = -np.ones(H, np.float32)
+        ins[3], ins[4] = (a / np.float32(np.sqrt(N)) for a in ins[3:5])
+    y, s = _decomposed(*_t(ins), Q=Q)
+    cum = np.cumsum((ins[1] * ins[2]).reshape(B, L // Q, Q, H), axis=2)
+    assert (cum.min() < -88.0) == strong
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_k, s_k = ssd_chunked_tpu(*_j(ins), Q=Q)
+    y_p, s_p = k4.ssd_chunked_plain(*_t(ins), Q=Q)
+    for want_y, want_s in ((np.asarray(y_k), np.asarray(s_k)),
+                           (y_p.numpy(), s_p.numpy())):
+        np.testing.assert_allclose(y.numpy(), want_y, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(s.numpy(), want_s, rtol=TOL, atol=TOL)
 
 
 def test_chunk_invariance():
