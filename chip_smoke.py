@@ -41,6 +41,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 6. PageRank: 30 iterations over the SEM operator (K1a) and over the IM
    operator (K2), both with the gather kernel named, against a float64
    scipy power iteration;
+6b. rings and a mutable graph, on phase 3's stores: SSSP by min-plus
+   Bellman-Ford waves from the vertex of largest out-degree over the raw
+   binary store of Aᵀ's pattern (p = 1), to a fixed point within 64 waves,
+   equal to scipy's BFS distances, one wave traced; one or-and and one
+   max-times pass (p = 4) equal to their numpy oracles; 200,000 weighted
+   inserts and 20,000 deletes through ``apply_updates``, then a
+   plus-times pass (p = 8) on the raw and the optimized binary store, each
+   equal to float64 (A + Δ) @ X bit for bit with exact h2d and one K1a
+   launch per batch, beside the frozen pass; ``ShardedSEMSpMM`` with 2
+   shards as threads on the card over that overlay, bit for bit the single
+   engine's; a min-plus pass over 50,000 new weighted edges equal to its
+   oracle, and its refusal of a log with deletions;
 7. NMF (k = 16, 3 iterations): over SEM stores of A and Aᵀ against IM, at
    ``--scale`` with the gather kernel, and on the densify cell's stores with
    the densify kernel (SEM: K1b, IM: K2 mxu) against the gather kernel;
@@ -841,18 +853,22 @@ def run_engine_phase(stores, pr_op, rng, dev, card):
             warm = secs
 
 
-def device_time(prof, secs: float, warm: float, kernel_name: str) -> str:
+def device_time(prof, secs: float, warm: float, kernel_name, n_batches=None
+                ) -> str:
     """What a torch.profiler trace of one pass shows of the card: the
-    kernel's summed device time, the copies', and the union of all device
-    activity against the pass's wall time (traced, and the untraced warm
-    pass before it), as the share the card sat idle."""
+    kernel's summed device time (every kernel's when ``kernel_name`` is
+    None, by name, and per batch when ``n_batches`` is given), the
+    copies', and the union of all device activity against the pass's wall
+    time (traced, and the untraced warm pass before it), as the share the
+    card sat idle."""
     spans = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
         return "no device activity recorded: idle share not measured"
-    kernel_us = sum(e.time_range.elapsed_us() for e in spans
-                    if kernel_name in e.name)
-    n_kernel = sum(kernel_name in e.name for e in spans)
+    kernels = [e for e in spans if (kernel_name in e.name if kernel_name
+                                    else not e.name.startswith(
+                                        ("Memcpy", "Memset")))]
+    kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
     copies = {}
     for e in spans:
         if e.name.startswith("Memcpy"):
@@ -863,8 +879,18 @@ def device_time(prof, secs: float, warm: float, kernel_name: str) -> str:
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    return (f"{n_kernel} kernel launches summing {kernel_us / 1e3:.3f} ms "
-            f"on the card, copies "
+    per_batch = ""
+    if n_batches:
+        names = {}
+        for e in kernels:
+            names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+        per_batch = (f" ({len(kernels) / n_batches:.2f} launches and "
+                     f"{kernel_us / 1e3 / n_batches:.4f} ms a batch over "
+                     f"{n_batches} batches; by kernel: "
+                     + "; ".join(f"{k} x{v}" for k, v in sorted(
+                         names.items(), key=lambda kv: -kv[1])) + ")")
+    return (f"{len(kernels)} kernel launches summing {kernel_us / 1e3:.3f} "
+            f"ms on the card{per_batch}, copies "
             + ", ".join(f"{k}: {v / 1e3:.3f} ms" for k, v in copies.items())
             + f"; device busy "
             f"{busy_us / 1e3:.3f} ms of {secs * 1e3:.1f} ms traced "
@@ -927,6 +953,226 @@ def run_pagerank_phase(stores, ct, adj, pr_op, dev, card):
             f"{secs / iters:.4f} s/iteration [{card}]")
         del op
         torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 6b: rings and a mutable graph -----------------------------------
+SSSP_MAX_WAVES = 64
+N_INSERTS, N_DELETES, N_RING_INSERTS = 200_000, 20_000, 50_000
+
+
+def padded_delta(n: int) -> int:
+    """Length the engine pads a pass's delta snapshot to (its
+    ``DELTA_PAD_FLOOR``, doubled until it holds ``n`` entries)."""
+    from repro_torch.core.sem import SEMSpMM
+    tgt = SEMSpMM.DELTA_PAD_FLOOR
+    while tgt < n:
+        tgt *= 2
+    return tgt
+
+
+def row_reduce(csr, terms, ufunc, empty: float) -> np.ndarray:
+    """``ufunc`` over each row's ``terms`` (one row of terms per stored
+    entry, in CSR order), the ring's identity ``empty`` for a row without
+    entries."""
+    out = np.full((csr.shape[0], terms.shape[1]), empty, np.float32)
+    rows = np.flatnonzero(np.diff(csr.indptr))
+    out[rows] = ufunc.reduceat(terms, csr.indptr[rows], axis=0)
+    return out
+
+
+def timed_pass(sem, x, **kw):
+    t0 = time.perf_counter()
+    y = sem.multiply(x, **kw)
+    return y, time.perf_counter() - t0
+
+
+def run_sssp(stores, adj, dev, card):
+    """Bellman-Ford over min-plus on the raw binary store of Aᵀ's pattern
+    from the vertex of largest out-degree, to a fixed point; the second
+    wave traced.  The distances must be scipy's BFS distances exactly."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+    from repro_torch.core.sem import SEMConfig, SEMSpMM
+    from repro_torch.io.storage import TileStore
+    n = adj.n_rows
+    src = int(np.argmax(np.bincount(adj.rows, minlength=n)))
+    sem = SEMSpMM(TileStore.open(stores["bin"].path),
+                  SEMConfig(chunk_batch=BATCH), device=dev)
+    dist = np.full(n, np.inf, np.float32)
+    dist[src] = 0.0
+    secs, trace = [], ""
+    for wave in range(1, SSSP_MAX_WAVES + 1):
+        traced = wave == 2
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            relaxed, t = timed_pass(sem, dist[:, None], semiring="min_plus")
+        if traced:
+            trace = device_time(prof, t, float(np.mean(secs)), None,
+                                sem.n_batches)
+        else:
+            secs.append(t)
+        new = np.minimum(dist, relaxed[:, 0])
+        if np.array_equal(new, dist):
+            break
+        dist = new
+    else:
+        check(False, f"SSSP: a fixed point within {SSSP_MAX_WAVES} waves")
+    a = sp.csr_matrix((np.ones(adj.nnz, np.float32), (adj.rows, adj.cols)),
+                      shape=(n, n))
+    t0 = time.perf_counter()
+    want = shortest_path(a, unweighted=True, indices=src)
+    t_scipy = time.perf_counter() - t0
+    check(np.array_equal(dist.astype(np.float64), want),
+          "SSSP: distances equal scipy's BFS distances")
+    reached = np.isfinite(want)
+    log(f"SSSP from vertex {src} (out-degree "
+        f"{int(np.sum(adj.rows == src))}): {wave} waves (the last one "
+        f"changes nothing), {int(reached.sum())} vertices reached, farthest "
+        f"{int(want[reached].max())}; equal to scipy's BFS distances "
+        f"({t_scipy:.1f} s in scipy); {np.mean(secs):.4f} s/wave untraced "
+        f"(min {min(secs):.4f}, max {max(secs):.4f}) [{card}]")
+    log(f"SSSP wave 2 trace: {trace}")
+    sem.close()
+
+
+def run_rings_phase(stores, adj, pr_op, rng, dev, card):
+    """Phase 6b: SSSP (min-plus), one or-and and one max-times pass, the
+    plus-times overlay on the raw and the optimized binary store, the
+    min-plus overlay and its refusal of deletions, and the sharded scan
+    over the overlay.  Returns K1a's launches on the last overlay pass
+    (the optimized store's)."""
+    import scipy.sparse as sp
+    from repro_torch.core.sem import SEMConfig, SEMSpMM
+    from repro_torch.distributed.shard_scan import ShardedSEMSpMM
+    from repro_torch.io.storage import TileStore, UpdateBatch
+    from repro_torch.kernels import sem_spmm
+    n = pr_op.n_rows
+    cfg = SEMConfig(chunk_batch=BATCH)
+    t0 = time.perf_counter()
+    at = sp.csr_matrix((np.ones(pr_op.nnz, np.float32),
+                        (pr_op.rows, pr_op.cols)), shape=(n, n))
+    at.sum_duplicates()      # canonical: sorted column indices per row
+    keys = (np.repeat(np.arange(n, dtype=np.int64), np.diff(at.indptr)) * n
+            + at.indices)
+    log(f"rings: Aᵀ's pattern as CSR, {at.nnz} entries, "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_sssp(stores, adj, dev, card)
+
+    # or-and and max-times, one pass each, p = 4
+    sem = SEMSpMM(TileStore.open(stores["bin"].path), cfg, device=dev)
+    x = rng.integers(-4, 5, (n, 4)).astype(np.float32)
+    got, t_or = timed_pass(sem, x, semiring="or_and")
+    want = ((at @ (x != 0).astype(np.float64)) > 0).astype(np.float32)
+    check(np.array_equal(got, want), "or_and: equal to boolean reachability")
+    got, t_max = timed_pass(sem, x, semiring="max_times")
+    want = row_reduce(at, at.data[:, None] * x[at.indices], np.maximum,
+                      -np.inf)
+    check(np.array_equal(got, want), "max_times: equal to the row max")
+    log(f"or_and pass {t_or:.4f} s, max_times pass {t_max:.4f} s (p = 4): "
+        f"each equal to its numpy oracle [{card}]")
+    sem.close()
+
+    # plus-times overlay: inserts with weights in [1, 4], deletes of edges
+    ins_key = rng.integers(0, n * n, N_INSERTS)
+    ins_w = rng.integers(1, 5, N_INSERTS).astype(np.float32)
+    del_key = keys[rng.choice(keys.size, N_DELETES, replace=False)]
+    batches = (UpdateBatch.insert(ins_key // n, ins_key % n, ins_w),
+               UpdateBatch.delete(del_key // n, del_key % n))
+    delta = (sp.csr_matrix((ins_w.astype(np.float64),
+                            (ins_key // n, ins_key % n)), shape=(n, n))
+             - sp.csr_matrix((np.ones(N_DELETES), (del_key // n,
+                                                    del_key % n)),
+                             shape=(n, n)))
+    x = rng.integers(-4, 5, (n, P)).astype(np.float32)
+    want = (at.astype(np.float64) + delta) @ x.astype(np.float64)
+    check(np.abs(want).max() < 2 ** 24, "overlay sums stay exact in f32")
+    want = want.astype(np.float32)
+    frozen = (at @ x.astype(np.float64)).astype(np.float32)
+    launches = 0
+    for name in ("bin", "binopt"):
+        store = TileStore.open(stores[name].path)
+        sem = SEMSpMM(store, cfg, device=dev)
+        for _ in range(2):      # cold, then warm: the one compared
+            frozen_y, t_frozen = timed_pass(sem, x)
+            check(np.array_equal(frozen_y, frozen),
+                  f"overlay {name}: the frozen pass equals scipy")
+        for b in batches:
+            sem.apply_updates(b)
+        n_delta = store.delta_log.snapshot()[1].size
+        reps = 2 if name == "bin" else 1
+        for rep in range(reps):
+            before = dataclasses.replace(store.stats)
+            sem_spmm.reset_launches()
+            got, t_over = timed_pass(sem, x)
+            st = store.stats
+            check(np.array_equal(got, want),
+                  f"overlay {name}: equal to float64 (A + Δ) @ X")
+            check(sem.last_pass_version == 2, f"overlay {name}: version 2")
+            check(st.bytes_read - before.bytes_read == store.nbytes,
+                  f"overlay {name}: bytes_read == store.nbytes")
+            check(st.h2d_bytes - before.h2d_bytes == expected_h2d(store, P)
+                  + 12 * padded_delta(n_delta),
+                  f"overlay {name}: h2d_bytes from the shapes and the delta")
+            check(sem_spmm.LAUNCHES["spmm_tiles_acc"] == sem.n_batches,
+                  f"overlay {name}: one K1a launch per batch")
+            launches = sem_spmm.LAUNCHES["spmm_tiles_acc"]
+            log(f"overlay {name} pass {rep}: equal to float64 (A + Δ) @ X, "
+                f"version 2, {n_delta} delta entries (padded to "
+                f"{padded_delta(n_delta)}), {sem.n_batches} batches = "
+                f"{launches} K1a launches; {t_over:.4f} s/pass against "
+                f"{t_frozen:.4f} s frozen (warm) [{card}]")
+        if name == "bin":
+            overlay_store, overlay_sem, overlay_y = store, sem, got
+        else:
+            sem.close()
+
+    # the sharded scan over that overlay: 2 shards as threads on the card
+    t_single = timed_pass(overlay_sem, x)[1]
+    with ShardedSEMSpMM(overlay_store, n_shards=2, config=cfg) as sh:
+        check(all(ex.device == dev for ex in sh.execs),
+              "sharded: both shards on the card")
+        for rep in range(2):
+            got, t_sh = timed_pass(sh, x)
+            check(np.array_equal(got.view(np.int32),
+                                 overlay_y.view(np.int32)),
+                  "sharded: bit for bit the single engine's result")
+            check(sh.io_stats.bytes_read == (rep + 1) * overlay_store.nbytes,
+                  "sharded: bytes_read == store.nbytes a pass")
+            log(f"sharded overlay pass {rep} (2 shards, threads on one "
+                f"card): equal to the single engine bit for bit; "
+                f"{t_sh:.4f} s/pass against {t_single:.4f} s single "
+                f"[{card}]")
+
+    # min-plus overlay: 50,000 new edges at distinct coordinates
+    cand = np.unique(rng.integers(0, n * n, 2 * N_RING_INSERTS))
+    pos = np.searchsorted(keys, cand).clip(max=keys.size - 1)
+    cand = cand[keys[pos] != cand]
+    new_key = rng.choice(cand, N_RING_INSERTS, replace=False)
+    new_w = rng.integers(1, 5, N_RING_INSERTS).astype(np.float32)
+    fresh = TileStore.open(stores["bin"].path)
+    sem = SEMSpMM(fresh, cfg, device=dev)
+    sem.apply_updates(UpdateBatch.insert(new_key // n, new_key % n, new_w))
+    x = rng.integers(0, 9, (n, 4)).astype(np.float32)
+    got, t_mp = timed_pass(sem, x, semiring="min_plus")
+    merged = at + sp.csr_matrix((new_w, (new_key // n, new_key % n)),
+                                shape=(n, n))
+    check(merged.nnz == at.nnz + N_RING_INSERTS, "min_plus: new edges only")
+    check(np.array_equal(got, row_reduce(
+        merged, merged.data[:, None] + x[merged.indices], np.minimum,
+        np.inf)),
+          "min_plus overlay: equal to the oracle over the merged edges")
+    log(f"min_plus overlay ({N_RING_INSERTS} new edges, p = 4): equal to "
+        f"the oracle over the merged edge lists; {t_mp:.4f} s/pass [{card}]")
+    sem.close()
+    try:
+        overlay_sem.multiply(x, semiring="min_plus")
+    except ValueError as e:
+        check("delet" in str(e), "min_plus refusal: names the deletions")
+        log(f"min_plus over the log with deletes refused: {e}")
+    else:
+        check(False, "min_plus over a log with deletes must raise")
+    overlay_sem.close()
     return launches
 
 
@@ -1619,6 +1865,8 @@ def main() -> int:
         phase("engine", run_engine_phase, stores, pr_op, rng, dev, card)
         launches = phase("pagerank", run_pagerank_phase, stores, ct, adj,
                          pr_op, dev, card)
+        overlay_launches = phase("rings", run_rings_phase, stores, adj,
+                                 pr_op, rng, dev, card)
         launches.update(phase("nmf", run_nmf_phase, args.scale, adj, ct,
                               stores, wide, cell, dev, card))
         phase("eigensolver", run_eigen_phase, wide, dev, card)
@@ -1675,6 +1923,7 @@ def main() -> int:
             kernels[-1].update(p=P, p1={k: r1[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_diff")})
+    kernels[0]["launches_overlay"] = overlay_launches
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel ran on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -75,8 +75,9 @@ def spmm(a, x, semiring: str = "plus_times", use_kernel: bool = False,
         if use_kernel:
             if semiring != "plus_times":
                 raise NotImplementedError(
-                    f"semiring {semiring!r} through the kernel: slice 2, "
-                    "see ROADMAP.md")
+                    f"semiring {semiring!r} through the kernel: the kernels "
+                    "are plus-times only; other semirings take the plain "
+                    "chunked path (use_kernel=False)")
             return spmm_kernel(a, x, variant=variant, device=device)
         return spmm_chunked(a, x, semiring)
     raise TypeError(f"unsupported sparse format {type(a)}")

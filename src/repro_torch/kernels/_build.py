@@ -13,10 +13,10 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -95,13 +95,32 @@ _ENTRIES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches: Dict[str, int], key: str) -> None:
+    """Add one to a wrapper's launch count, under a lock: a bare ``+=``
+    from several threads launching at once can drop counts."""
+    with _COUNT_LOCK:
+        launches[key] += 1
+
+
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+
+
 def library(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu``, built at first use, with the C signature of its
-    entry point declared."""
-    lib = ctypes.CDLL(str(build(name).path))
-    entry, argtypes = _ENTRIES[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib
+    entry point declared.  Loaded under a lock: threads that launch a
+    kernel for the first time together (the shards of a sharded scan)
+    build and load it once."""
+    with _LOAD_LOCK:
+        lib = _LIBRARIES.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name).path))
+            entry, argtypes = _ENTRIES[name]
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBRARIES[name] = lib
+        return lib

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import count_launch, library
 
 NEG_INF = -1e30
 # Kernel launches since the last reset_launches() (plain runs do not count).
@@ -143,5 +143,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention"] += 1
+    count_launch(LAUNCHES, "flash_attention")
     return out

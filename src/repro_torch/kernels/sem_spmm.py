@@ -53,7 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import count_launch, library
 
 # Kernel launches per wrapper and variant since the last reset (see
 # reset_launches); the gather variant keeps the wrapper's plain name.
@@ -283,7 +283,8 @@ def _apply(meta, n_valid, row_local, col_local, vals, x_pad, acc, T: int,
         raise ValueError(f"no kernel for device {acc.device}")
     _launch(meta, n_valid, row_local, col_local, vals, x_pad, acc, T,
             variant, out, wrapper == "spmm_tiles")
-    LAUNCHES[wrapper if variant == "gather" else f"{wrapper}_mxu"] += 1
+    count_launch(LAUNCHES,
+                 wrapper if variant == "gather" else f"{wrapper}_mxu")
     return acc if out is None else out
 
 

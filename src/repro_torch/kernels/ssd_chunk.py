@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import count_launch, library
 
 # Kernel launches since the last reset_launches() (plain runs do not count).
 LAUNCHES = {"ssd_chunked": 0}
@@ -158,5 +158,5 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, Q: int = 128
             N, Q, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"SSD chunk kernel launch failed: CUDA error {err}")
-    LAUNCHES["ssd_chunked"] += 1
+    count_launch(LAUNCHES, "ssd_chunked")
     return y, state

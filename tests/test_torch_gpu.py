@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 gather kernel (K1a, and K2 through it), the densify kernel (K1b, and
-K2-mxu through it), flash attention (K3) and the SSD chunk scan (K4).
+K2-mxu through it), flash attention (K3) and the SSD chunk scan (K4); and
+the engine's plain steps on the card (the ring step, the delta overlay's
+scatter and fold, the sharded scan's threads) against the CPU engine.
 
 Small shapes; every test needs a card and skips without one (decided in the
 ``cuda`` fixture, never at import).  Run on a machine with a card:
@@ -244,6 +246,116 @@ def test_boundary_hook_on_card(cuda, stores):
         results.append((sem.multiply(x, boundary_hook=hook), seen["prefix"]))
     np.testing.assert_array_equal(results[0][0], results[1][0])
     np.testing.assert_array_equal(results[0][1], results[1][1])
+
+
+def _non_finite_operand(n, p, seed):
+    """Integers with NaN, inf, -inf, -0.0 and +0.0 spread over the rows."""
+    x = np.random.default_rng(seed).integers(-3, 4, (n, p)).astype(
+        np.float32)
+    x[::7, 0] = np.nan
+    x[1::7, 1 % p] = np.inf
+    x[2::7, 2 % p] = -np.inf
+    x[3::5, :] = -0.0
+    x[4::5, :] = 0.0
+    return x
+
+
+def _same_bits(got, want):
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(np.where(nan, 0, got).view(np.int32),
+                                  np.where(nan, 0, want).view(np.int32))
+
+
+def _churn(store, n, inserts_only=False):
+    """Updates from fixed seeds through a fresh handle: integer weights in
+    [1, 4] at unique coordinates, and (unless ``inserts_only``) deletes."""
+    from repro_torch.io.storage import GraphHandle, UpdateBatch
+    r = np.random.default_rng(11)
+    key = np.unique(r.integers(0, n * n, 300))
+    h = GraphHandle([store])
+    h.apply_updates(UpdateBatch.insert(
+        key // n, key % n, (np.arange(key.size) % 4 + 1).astype(np.float32)))
+    if not inserts_only:
+        h.apply_updates(UpdateBatch.delete(r.integers(0, n, 60),
+                                           r.integers(0, n, 60)))
+    return h
+
+
+@pytest.mark.parametrize("name", ["val256", "binopt256"])
+@pytest.mark.parametrize("ring", ["or_and", "min_plus", "max_times"])
+@pytest.mark.parametrize("overlay", [False, True], ids=["frozen", "overlay"])
+def test_ring_pass_on_card_matches_cpu(cuda, stores, name, ring, overlay):
+    """Each ring step (and, over an insert-only log, each ring fold) on the
+    card against the plain CPU path on an operand holding NaN, inf and
+    both zeros: the same bits, NaN by position, and the same IOStats."""
+    path = stores[name].path
+    n = stores[name].header["n_cols"]
+    x = _non_finite_operand(n, 3, 6)
+    runs = []
+    for dev in (cuda, "cpu"):
+        st = TileStore.open(path)
+        if overlay:
+            _churn(st, n, inserts_only=True)
+        sem = SEMSpMM(st, SEMConfig(chunk_batch=53), device=dev)
+        runs.append((sem.multiply(x, semiring=ring), sem))
+    (got, gpu), (want, cpu) = runs
+    _same_bits(got, want)
+    for k in ("bytes_read", "h2d_bytes", "overlap_batches"):
+        assert getattr(gpu.io_stats, k) == getattr(cpu.io_stats, k), k
+
+
+@pytest.mark.parametrize("variant", ["gather", "mxu"])
+@pytest.mark.parametrize("name", ["val256", "binopt256"])
+def test_overlay_on_card_matches_cpu(cuda, stores, variant, name):
+    """The plus-times overlay (inserts and deletes) over both kernel
+    variants: the same bits as the CPU engine on integer data, one kernel
+    launch per batch, and the same IOStats."""
+    path = stores[name].path
+    n = stores[name].header["n_cols"]
+    x = np.random.default_rng(8).integers(-4, 5, (n, 8)).astype(np.float32)
+    runs = []
+    for dev in (cuda, "cpu"):
+        st = TileStore.open(path)
+        _churn(st, n)
+        sem = SEMSpMM(st, SEMConfig(chunk_batch=53, kernel_variant=variant),
+                      device=dev)
+        sem_spmm.reset_launches()
+        runs.append((sem.multiply(x), sem, dict(sem_spmm.LAUNCHES)))
+    (got, gpu, launches), (want, cpu, _) = runs
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    key = "spmm_tiles_acc" + ("_mxu" if variant == "mxu" else "")
+    assert launches[key] == gpu.n_batches
+    assert gpu.last_pass_version == cpu.last_pass_version == 2
+    for k in ("bytes_read", "h2d_bytes", "overlap_batches"):
+        assert getattr(gpu.io_stats, k) == getattr(cpu.io_stats, k), k
+
+
+@pytest.mark.parametrize("overlay", [False, True], ids=["frozen", "overlay"])
+def test_sharded_scan_threads_on_one_card(cuda, stores, overlay):
+    """Two shards as threads on one card, each on its own streams: the
+    single engine's bits, every byte of the store read once."""
+    from repro_torch.distributed.shard_scan import ShardedSEMSpMM
+    path = stores["val256"].path
+    n = stores["val256"].header["n_cols"]
+    x = np.random.default_rng(9).integers(-4, 5, (n, 8)).astype(np.float32)
+    st = TileStore.open(path)
+    if overlay:
+        _churn(st, n)
+    sh = ShardedSEMSpMM(st, n_shards=2, config=SEMConfig(chunk_batch=53),
+                        devices=[cuda])
+    one = SEMSpMM(TileStore.open(path), SEMConfig(chunk_batch=53),
+                  device=cuda)
+    if overlay:
+        one.store._delta_src = st   # share the overlay
+    try:
+        for _ in range(2):
+            got = sh.multiply(x)
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          one.multiply(x).view(np.int32))
+        assert sh.io_stats.bytes_read == 2 * st.nbytes
+    finally:
+        sh.close()
 
 
 def test_build_reports_registers(cuda):

@@ -196,12 +196,17 @@ def test_prestaged_operand_is_taken_as_is(paths, x8):
 
 
 def test_out_of_slice_features_raise(paths, x8):
-    """Not in this slice: other semirings, stores with a delta log.  Each
-    raises instead of answering wrongly.  The densify variant, refused in
-    slice 1, now answers as the reference's Pallas mxu step does."""
-    port = port_engine(paths["val"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.multiply(x8, semiring="min_plus")
+    """Features once out of the port's slice now answer as the reference's
+    engine does: a ring other than plus-times, the densify variant, and a
+    store with a delta log.  Only an unknown kernel variant still
+    raises."""
+    from repro.io.storage import GraphHandle as RefGraphHandle
+    from repro.io.storage import UpdateBatch as RefUpdateBatch
+    from repro_torch.io.storage import GraphHandle, UpdateBatch
+    port, ref = port_engine(paths["val"]), ref_engine(paths["val"])
+    np.testing.assert_array_equal(port.multiply(x8, semiring="min_plus"),
+                                  ref.multiply(x8, semiring="min_plus"))
+    assert_same_run(port, ref)
     mxu = port_engine(paths["val"], kernel_variant="mxu")
     ref = RefSEMSpMM(RefTileStore.open(paths["val"]),
                      RefConfig(chunk_batch=BATCH, use_pallas=True,
@@ -210,8 +215,13 @@ def test_out_of_slice_features_raise(paths, x8):
     assert_same_run(mxu, ref)
     with pytest.raises(ValueError, match="unknown kernel variant"):
         port_engine(paths["val"], kernel_variant="vpu").multiply(x8)
-    from repro_torch.io.storage import GraphHandle, UpdateBatch
-    st = TileStore.open(paths["val"])
+    st, rst = TileStore.open(paths["val"]), RefTileStore.open(paths["val"])
     GraphHandle([st]).apply_updates(UpdateBatch.insert([0], [1], [1.0]))
-    with pytest.raises(NotImplementedError, match="delta log"):
-        SEMSpMM(st, SEMConfig(chunk_batch=BATCH), device="cpu").multiply(x8)
+    RefGraphHandle([rst]).apply_updates(RefUpdateBatch.insert([0], [1],
+                                                              [1.0]))
+    port = SEMSpMM(st, SEMConfig(chunk_batch=BATCH), device="cpu")
+    ref = RefSEMSpMM(rst, RefConfig(chunk_batch=BATCH, use_pallas=True,
+                                    pallas_variant="gather"))
+    np.testing.assert_array_equal(port.multiply(x8), ref.multiply(x8))
+    assert port.last_pass_version == ref.last_pass_version == 1
+    assert_same_run(port, ref)
