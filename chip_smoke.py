@@ -53,6 +53,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    shards as threads on the card over that overlay, bit for bit the single
    engine's; a min-plus pass over 50,000 new weighted edges equal to its
    oracle, and its refusal of a log with deletions;
+6c. serving, on phase 3's stores: the shared-scan scheduler's waves (8
+   PageRank tenants and 8 queries in 30 passes, then with the hot-chunk
+   cache, an elastic wave admitting queries mid-pass, SSSP and BFS tenants
+   beside queries, a two-wave fleet over two copies and a replica failing
+   mid-pass), and label propagation, SpGEMM and triangle-count sessions on
+   small graphs, each against its float64 or scipy oracle;
 7. NMF (k = 16, 3 iterations): over SEM stores of A and Aᵀ against IM, at
    ``--scale`` with the gather kernel, and on the densify cell's stores with
    the densify kernel (SEM: K1b, IM: K2 mxu) against the gather kernel;
@@ -990,7 +996,8 @@ def timed_pass(sem, x, **kw):
 def run_sssp(stores, adj, dev, card):
     """Bellman-Ford over min-plus on the raw binary store of Aᵀ's pattern
     from the vertex of largest out-degree, to a fixed point; the second
-    wave traced.  The distances must be scipy's BFS distances exactly."""
+    wave traced.  The distances must be scipy's BFS distances exactly.
+    Returns the source and those distances (phase 6c's oracle)."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import shortest_path
     from repro_torch.core.sem import SEMConfig, SEMSpMM
@@ -1034,6 +1041,7 @@ def run_sssp(stores, adj, dev, card):
         f"(min {min(secs):.4f}, max {max(secs):.4f}) [{card}]")
     log(f"SSSP wave 2 trace: {trace}")
     sem.close()
+    return src, want
 
 
 def run_rings_phase(stores, adj, pr_op, rng, dev, card):
@@ -1041,7 +1049,7 @@ def run_rings_phase(stores, adj, pr_op, rng, dev, card):
     plus-times overlay on the raw and the optimized binary store, the
     min-plus overlay and its refusal of deletions, and the sharded scan
     over the overlay.  Returns K1a's launches on the last overlay pass
-    (the optimized store's)."""
+    (the optimized store's) and SSSP's source and BFS distances."""
     import scipy.sparse as sp
     from repro_torch.core.sem import SEMConfig, SEMSpMM
     from repro_torch.distributed.shard_scan import ShardedSEMSpMM
@@ -1057,7 +1065,7 @@ def run_rings_phase(stores, adj, pr_op, rng, dev, card):
             + at.indices)
     log(f"rings: Aᵀ's pattern as CSR, {at.nnz} entries, "
         f"{time.perf_counter() - t0:.1f} s")
-    run_sssp(stores, adj, dev, card)
+    bfs = run_sssp(stores, adj, dev, card)
 
     # or-and and max-times, one pass each, p = 4
     sem = SEMSpMM(TileStore.open(stores["bin"].path), cfg, device=dev)
@@ -1173,6 +1181,473 @@ def run_rings_phase(stores, adj, pr_op, rng, dev, card):
     else:
         check(False, "min_plus over a log with deletes must raise")
     overlay_sem.close()
+    return launches, bfs
+
+
+# -- phase 6c: serving ------------------------------------------------------
+SERVE_DAMPINGS = tuple(round(0.80 + 0.02 * i, 2) for i in range(8))
+# iterations: the shared wave's 30 as phase 6's PageRank; the cached wave,
+# the fleet and the elastic wave cut to the fewest that show their point
+# (a warm pass after the cold one; a second pass per wave; admission in
+# pass 2, completion in pass 3), for the phase's time
+SERVE_ITERS, SERVE_CACHED_ITERS, SERVE_ELASTIC_ITERS = 30, 5, 3
+SERVE_MIDPASS_AT = 170       # the boundary of pass 2 where queries arrive
+# (f): label propagation on a scale-16 graph; SpGEMM and triangle counts on
+# a scale-13 one (host numpy: their expanded products grow about 2.8x a
+# scale, and scale 13's take seconds; the job prints its count)
+LP_SCALE, SPGEMM_SCALE, LP_ITERS, LP_LABELS = 16, 13, 20, 4
+
+
+def csr64(rows, cols, vals, n: int, dev):
+    """An n x n float64 CSR matrix on the card, summing duplicates: the
+    oracles' operator.  Its products are torch.sparse's in float64, never
+    the port's kernels (at scale 22 scipy takes minutes for them)."""
+    idx = torch.stack([torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                       for a in (rows, cols)])
+    v = (torch.ones(idx.shape[1], dtype=torch.float64, device=dev)
+         if vals is None else torch.from_numpy(
+             np.asarray(vals, np.float64)).to(dev))
+    return torch.sparse_coo_tensor(idx, v, (n, n)).coalesce().to_sparse_csr()
+
+
+def pagerank_f64_multi(p64, dangling, dampings, keep):
+    """Float64 power iterations at several dampings at once, one product
+    with a column per damping each iteration; returns the iterates (host
+    arrays) after each count in ``keep``."""
+    n, dev = p64.shape[0], p64.device
+    mask = torch.from_numpy(np.asarray(dangling, bool)).to(dev)
+    d = torch.tensor(dampings, dtype=torch.float64, device=dev)[None, :]
+    x = torch.full((n, d.shape[1]), 1.0 / n, dtype=torch.float64,
+                   device=dev)
+    out = {}
+    for it in range(1, max(keep) + 1):
+        x = d * (p64 @ x + x[mask].sum(dim=0) / n) + (1.0 - d) / n
+        if it in keep:
+            out[it] = x.cpu().numpy()
+    return out
+
+
+def check_pagerank(label, sessions, oracle) -> str:
+    """Each PageRank tenant against its damping's float64 column, within
+    phase 6's limits (L1 < 1e-5, max rel < 1e-4)."""
+    worst_l1 = worst_rel = 0.0
+    for s, col in zip(sessions, oracle.T):
+        err = np.abs(s.result - col)
+        l1, rel = float(err.sum()), float((err / col).max())
+        check(s.done and np.isfinite(s.result).all() and l1 < 1e-5
+              and rel < 1e-4, f"serving {label}: PageRank at damping "
+              f"{s.damping} within tolerance of float64")
+        worst_l1, worst_rel = max(worst_l1, l1), max(worst_rel, rel)
+    return (f"{len(sessions)} PageRank tenants within tolerance of float64 "
+            f"(worst L1 {worst_l1:.3e}, max rel {worst_rel:.3e})")
+
+
+def query_oracle(a64, xs):
+    """Float64 products of the queries' operands, one column each:
+    ``A @ X`` and ``|A| @ |X|`` (every operator here is nonnegative)."""
+    x = torch.from_numpy(np.stack(xs, axis=1).astype(np.float64)).to(
+        a64.device)
+    return (a64 @ x).cpu().numpy(), (a64 @ x.abs()).cpu().numpy()
+
+
+def check_queries(label, results, want, scale=None) -> str:
+    """One-shot tenants against their float64 products (columns of
+    ``want``): bit for bit where every sum is exact (integer operands on a
+    binary store, ``scale`` None), else within FLOAT_TOL of |A|·|x|
+    (check_float's rule: P's values are 1/out-degree)."""
+    worst = 0.0
+    for i, got in enumerate(results):
+        if scale is None:
+            check(np.array_equal(got, want[:, i].astype(np.float32)),
+                  f"serving {label}: query equal to float64 bit for bit")
+            continue
+        err = np.abs(got - want[:, i])
+        check(bool((err <= FLOAT_TOL * scale[:, i]).all()),
+              f"serving {label}: query within {FLOAT_TOL} of |A|·|x|")
+        worst = max(worst, float((err / np.maximum(scale[:, i], 1e-30))
+                                 .max()))
+    return (f"{len(results)} queries " + (
+        "equal to float64 bit for bit" if scale is None else
+        f"within {FLOAT_TOL} of |A|·|x| of float64 (worst {worst:.3e} of "
+        f"it)"))
+
+
+def serve_passes(sched, sem, trace_pass=None):
+    """Drive ``sched`` until it is idle; returns the wall seconds of each
+    pass and, if ``trace_pass`` is given, that pass's device-time line."""
+    secs, trace = [], ""
+    while not sched.idle:
+        traced = len(secs) == trace_pass
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            check(sched.run_pass() is not None, "serving: a pass ran")
+            t = time.perf_counter() - t0
+        if traced:
+            trace = device_time(prof, t, float(np.mean(secs[1:])),
+                                "chunk_gather_kernel", sem.n_batches)
+        secs.append(t)
+    return secs, trace
+
+
+def store_csr(store):
+    """A product store's entries as a float64 scipy CSR matrix."""
+    import scipy.sparse as sp
+    parts = [(r, c, v) for _, r, c, v in store.iter_tile_row_entries()
+             if r.size]
+    h = store.header
+    return sp.csr_matrix(
+        (np.concatenate([p[2] for p in parts]).astype(np.float64),
+         (np.concatenate([p[0] for p in parts]),
+          np.concatenate([p[1] for p in parts]))),
+        shape=(h["n_rows"], h["n_cols"]))
+
+
+def run_serving_phase(stores, adj, pr_op, sssp_ref, seed, rng, dev, card,
+                      tmp):
+    """Phase 6c: the serving runtime over phase 3's stores — (a) a shared
+    wave of 8 PageRank tenants and 8 queries, (b) the same with the
+    hot-chunk cache, (c) an elastic wave admitting queries mid-pass, (d)
+    SSSP and BFS tenants beside queries on the binary store, (e) a
+    two-wave fleet over two copies and a replica's failure mid-pass; then
+    (f) label propagation, SpGEMM and triangle-count sessions on small
+    graphs.  ``sssp_ref`` is phase 6b's SSSP source and scipy's BFS
+    distances from it.  Returns K1a's launches over (a)-(e)."""
+    import scipy.sparse as sp
+    from repro_torch.apps.labelprop import build_operator as lp_operator
+    from repro_torch.apps.labelprop import labelprop_session
+    from repro_torch.apps.pagerank import dangling_vertices, pagerank_session
+    from repro_torch.core.formats import COO, to_chunked
+    from repro_torch.core.sem import SEMConfig, SEMSpMM
+    from repro_torch.io.storage import TileStore
+    from repro_torch.kernels import sem_spmm
+    from repro_torch.runtime import (BFSSession, MultiplyRequest,
+                                     ReplicaSet, ServingFleet, SessionSpec,
+                                     SharedScanScheduler, SSSPSession)
+    from repro_torch.sparse.generate import rmat
+    n = pr_op.n_rows
+    cfg = SEMConfig(memory_budget_bytes=4 << 30, kernel_variant="gather")
+    val = stores["val"]
+    t0 = time.perf_counter()
+    deg = np.bincount(pr_op.cols, minlength=n).astype(np.float64)
+    p64 = csr64(pr_op.rows, pr_op.cols, 1.0 / deg[pr_op.cols], n, dev)
+    oracle = pagerank_f64_multi(p64, dangling_vertices(adj), SERVE_DAMPINGS,
+                                (SERVE_ELASTIC_ITERS, SERVE_CACHED_ITERS,
+                                 SERVE_ITERS))
+    xs = [rng.integers(-3, 4, n).astype(np.float32) for _ in range(8)]
+    want, scale = query_oracle(p64, xs)
+    del p64
+    at64 = csr64(pr_op.rows, pr_op.cols, None, n, dev)
+    want_bin = query_oracle(at64, xs)[0]
+    del at64
+    torch.cuda.empty_cache()
+    log(f"serving: float64 oracles on the card (PageRank at dampings "
+        f"{SERVE_DAMPINGS}, {SERVE_ITERS} iterations; the queries' products "
+        f"on the valued and the binary store), "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = 0
+
+    def k1a():
+        return sem_spmm.LAUNCHES["spmm_tiles_acc"]
+
+    def pr_tenants(sched, iters, k=8):
+        return [sched.submit(pagerank_session(
+            adj, damping=d, max_iter=iters, tol=0.0, tenant_id=f"pr{d}"))
+            for d in SERVE_DAMPINGS[:k]]
+
+    # (a) the shared wave: 30 passes serve 8 x 30 + 8 tenant-passes
+    sem = SEMSpMM(TileStore.open(val.path), cfg, device=dev)
+    sched = SharedScanScheduler(sem, use_cache=False)
+    prs = pr_tenants(sched, SERVE_ITERS)
+    qs = [sched.submit(MultiplyRequest(x, tenant_id=f"q{i}"))
+          for i, x in enumerate(xs)]
+    sem_spmm.reset_launches()
+    secs, trace = serve_passes(sched, sem, trace_pass=2)
+    launches += k1a()
+    served = sum(r.tenants for r in sched.reports)
+    check(sched.total_scan_passes() == SERVE_ITERS == len(secs),
+          f"serving (a): {SERVE_ITERS} passes, not {8 * SERVE_ITERS + 8}")
+    check(served == 8 * SERVE_ITERS + 8,
+          f"serving (a): {8 * SERVE_ITERS + 8} tenant-passes")
+    check(sem.io_stats.bytes_read == SERVE_ITERS * val.nbytes,
+          "serving (a): bytes_read == passes x nbytes")
+    check(k1a() == SERVE_ITERS * sem.n_batches,
+          "serving (a): one K1a launch per batch and pass")
+    log(f"serving (a) shared wave: "
+        f"{check_pagerank('(a)', prs, oracle[SERVE_ITERS])}"
+        f"; {check_queries('(a)', [q.result for q in qs], want, scale)}")
+    untraced = secs[:2] + secs[3:]
+    log(f"serving (a): {SERVE_ITERS} passes for {served} tenant-passes "
+        f"({served / SERVE_ITERS:.2f} tenants/pass; {served - SERVE_ITERS} "
+        f"passes saved against one pass each), {sem.n_batches} batches = "
+        f"{k1a() // SERVE_ITERS} K1a launches a pass; first pass (16 "
+        f"columns) {secs[0]:.4f} s, the 8-column passes "
+        f"{np.mean(untraced[1:]):.4f} s/pass (min {min(untraced[1:]):.4f}, "
+        f"max {max(untraced[1:]):.4f}) [{card}]")
+    log(f"serving (a) pass 3 trace: {trace}")
+    del sched, prs, qs
+    sem.close()
+
+    # (b) the same wave with the hot-chunk cache, 10 passes
+    st = TileStore.open(val.path)
+    sem = SEMSpMM(st, cfg, device=dev)
+    sched = SharedScanScheduler(sem, use_cache=True)
+    prs = pr_tenants(sched, SERVE_CACHED_ITERS)
+    qs = [sched.submit(MultiplyRequest(x, tenant_id=f"q{i}"))
+          for i, x in enumerate(xs)]
+    sem_spmm.reset_launches()
+    secs, trace = serve_passes(sched, sem, trace_pass=2)
+    launches += k1a()
+    reps = sched.reports
+    check(len(reps) == SERVE_CACHED_ITERS,
+          f"serving (b): {SERVE_CACHED_ITERS} passes")
+    check(st.stats.bytes_read + st.stats.cache_hit_bytes
+          == SERVE_CACHED_ITERS * val.nbytes,
+          "serving (b): bytes_read + cache_hit_bytes == passes x nbytes")
+    check(reps[0].bytes_read == val.nbytes and reps[0].cache_budget
+          >= val.nbytes, "serving (b): the cold pass reads the store and "
+          "the leftover budget holds it")
+    check(all(r.bytes_read == 0 for r in reps[1:]),
+          "serving (b): the later passes read 0 bytes")
+    warm = secs[1:2] + secs[3:]
+    log(f"serving (b) cached wave: "
+        f"{check_pagerank('(b)', prs, oracle[SERVE_CACHED_ITERS])}"
+        f"; {check_queries('(b)', [q.result for q in qs], want, scale)}"
+        f"; cache budget {reps[0].cache_budget} B, {len(sched.cache)} "
+        f"batches pinned ({sched.cache.pinned_bytes} B), cache_hit_bytes "
+        f"{st.stats.cache_hit_bytes}; cold pass {secs[0]:.4f} s, warm "
+        f"{np.mean(warm):.4f} s/pass (min {min(warm):.4f}, max "
+        f"{max(warm):.4f}) [{card}]")
+    log(f"serving (b) pass 3 trace (batches from the cache): {trace}")
+    del sched, prs, qs
+    sem.close()
+
+    # (c) elastic: 4 queries arrive at boundary 170 of pass 2
+    sem = SEMSpMM(TileStore.open(val.path), cfg, device=dev)
+    box = []
+
+    def probe(sched, b):
+        if not box and sched.boundary_clock >= (sem.n_batches
+                                                + SERVE_MIDPASS_AT):
+            box.extend(sched.submit(MultiplyRequest(x, tenant_id=f"m{i}"))
+                       for i, x in enumerate(xs[:4]))
+    sched = SharedScanScheduler(sem, use_cache=False, elastic=True,
+                                capacity=16, boundary_probe=probe)
+    prs = pr_tenants(sched, SERVE_ELASTIC_ITERS, k=4)
+    sem_spmm.reset_launches()
+    secs, _ = serve_passes(sched, sem)
+    launches += k1a()
+    reps = sched.reports
+    check(len(box) == 4 and all(q.done for q in box),
+          "serving (c): the mid-pass queries were served")
+    check(sum(r.admitted_midpass for r in reps) == 4
+          and reps[1].admitted_midpass == 4,
+          "serving (c): 4 queries admitted inside pass 2")
+    check(sum(r.completed_midpass for r in reps) == 4,
+          "serving (c): 4 stitched deliveries")
+    check(k1a() == len(reps) * sem.n_batches,
+          "serving (c): one K1a launch per batch and pass")
+    waited = [q.first_result_clock - q.submit_clock for q in box]
+    log(f"serving (c) elastic wave: "
+        f"{check_pagerank('(c)', prs, oracle[SERVE_ELASTIC_ITERS][:, :4])}"
+        f"; mid-pass "
+        f"{check_queries('(c)', [q.result for q in box], want, scale)}"
+        f"; admitted at clock {box[0].submit_clock}, delivered after "
+        f"{min(waited)}-{max(waited)} boundaries (a pass is "
+        f"{sem.n_batches}); {len(reps)} passes, {np.mean(secs):.4f} s/pass "
+        f"[{card}]")
+    del sched, prs, box
+    sem.close()
+
+    # (d) a ring mini-wave (SSSP) beside BFS and queries on the binary
+    # store, from phase 6b's source, against its scipy BFS distances
+    src, dist = sssp_ref
+    sem = SEMSpMM(TileStore.open(stores["bin"].path), cfg, device=dev)
+    sched = SharedScanScheduler(sem, use_cache=False)
+    sssp = sched.submit(SSSPSession(np.array([src]), n, tenant_id="sssp"))
+    bfs = sched.submit(BFSSession(np.array([src]), n, tenant_id="bfs"))
+    qs = [sched.submit(MultiplyRequest(x, tenant_id=f"b{i}"))
+          for i, x in enumerate(xs[:4])]
+    sem_spmm.reset_launches()
+    t0 = time.perf_counter()
+    sched.drain()
+    t_d = time.perf_counter() - t0
+    launches += k1a()
+    rings = [r for r in sched.reports if r.semiring == "min_plus"]
+    plus = [r for r in sched.reports if r.semiring == "plus_times"]
+    check(sssp.done and np.array_equal(sssp.result.astype(np.float64), dist),
+          "serving (d): SSSP distances equal scipy's BFS distances")
+    check(bfs.done and np.array_equal(
+        bfs.result, np.where(np.isfinite(dist), dist, -1).astype(np.int32)),
+          "serving (d): BFS levels equal scipy's BFS distances")
+    check(k1a() == len(plus) * sem.n_batches,
+          "serving (d): one K1a launch per batch of each plus-times pass")
+    log(f"serving (d) rings: SSSP from vertex {src} and BFS equal to "
+        f"phase 6b's scipy BFS distances; "
+        f"{check_queries('(d)', [q.result for q in qs], want_bin)}"
+        f"; {len(rings)} min-plus and {len(plus)} plus-times passes in "
+        f"{t_d:.1f} s ({t_d / len(sched.reports):.4f} s/pass) [{card}]")
+    del sched, sssp, bfs, qs
+    sem.close()
+
+    # (e) two waves over two copies of the valued store, then a failure
+    copy = str(tmp / "val_copy")
+    for ext in (".bin", ".json"):
+        shutil.copyfile(val.path + ext, copy + ext)
+    rs = ReplicaSet([val.path, copy], cfg, devices=[dev, dev])
+    sem_spmm.reset_launches()
+    t0 = time.perf_counter()
+    with ServingFleet(rs, n_waves=2, use_cache=False) as fleet:
+        prs = [fleet.submit(pagerank_session(
+            adj, damping=d, max_iter=SERVE_CACHED_ITERS, tol=0.0))
+            for d in SERVE_DAMPINGS]
+        qs = [fleet.query(x, tenant_id=f"f{i}") for i, x in enumerate(xs)]
+        fleet.drain(timeout=900)
+        t_e = time.perf_counter() - t0
+        passes = fleet.total_scan_passes()
+        per_wave = [w.passes_served for w in fleet.waves]
+        check(fleet.io_stats.bytes_read == passes * val.nbytes,
+              "serving (e): the fleet reads the store once a pass")
+        check(k1a() == passes * rs.n_batches,
+              "serving (e): one K1a launch per batch and pass")
+        log(f"serving (e) fleet: "
+            f"{check_pagerank('(e)', prs, oracle[SERVE_CACHED_ITERS])}; "
+            f"{check_queries('(e)', [q.result for q in qs], want, scale)}"
+            f"; 2 waves, passes {per_wave} ({passes} in all) in {t_e:.1f} s"
+            f"; replica scans "
+            f"{[s.scans for s in rs.router.states]} [{card}]")
+    launches += k1a()
+    del prs, qs
+    # a replica's read fails mid-pass: on the binary store, whose integer
+    # sums are exact, so the retried pass must give the oracle's bits
+    bcopy = str(tmp / "bin_copy")
+    for ext in (".bin", ".json"):
+        shutil.copyfile(stores["bin"].path + ext, bcopy + ext)
+    rs = ReplicaSet([stores["bin"].path, bcopy], cfg, devices=[dev, dev])
+    x8 = np.stack(xs, axis=1)
+    want_x8 = want_bin.astype(np.float32)
+    victim = rs.router.ranked()[0]
+    real = rs.execs[victim].store.read_batch_raw
+    calls = {"n": 0}
+
+    def dying(start, count):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise OSError("replica removed mid-pass")
+        return real(start, count)
+    rs.execs[victim].store.read_batch_raw = dying
+    sem_spmm.reset_launches()
+    check(np.array_equal(rs.multiply(x8), want_x8),
+          "serving (e): the retried pass gives the oracle's bits")
+    state = rs.router.states[victim]
+    check(not state.healthy and state.failures == 1
+          and "OSError" in (state.last_error or ""),
+          "serving (e): the router marks the victim unhealthy")
+    rs.execs[victim].store.read_batch_raw = real
+    rs.router.restore(victim)
+    rs.router.fail(1 - victim, OSError("set aside for the check"))
+    check(np.array_equal(rs.multiply(x8), want_x8) and state.scans == 1,
+          "serving (e): the restored replica serves the same bits")
+    launches += k1a()
+    log(f"serving (e) failover: replica {victim}'s read failed on its third "
+        f"batch; the pass retried on the copy equal to float64 bit for bit "
+        f"(p = 8); restored, it served the same bits; {k1a()} K1a launches "
+        f"(two whole passes and the abandoned one's first) [{card}]")
+    rs.close()
+
+    # (f) host-side sessions on small graphs: label propagation (engine
+    # passes on the card), SpGEMM and triangle counts (host numpy)
+    adj16 = rmat(LP_SCALE, 16, seed=seed)
+    lop = lp_operator(adj16)
+    lp_store = TileStore.write(str(tmp / "lp"), to_chunked(lop, T=4096,
+                                                           C=1024))
+    n16 = adj16.n_rows
+    seeds = rng.choice(n16, 8 * LP_LABELS, replace=False)
+    seed_labels = np.repeat(np.arange(LP_LABELS), 8)
+    sched = SharedScanScheduler(SEMSpMM(lp_store, SEMConfig(),
+                                        device=dev))
+    t0 = time.perf_counter()
+    lp = sched.submit(labelprop_session(adj16, seeds, seed_labels,
+                                        LP_LABELS, tol=0.0,
+                                        max_iter=LP_ITERS))
+    sched.drain()
+    t_lp = time.perf_counter() - t0
+    a16 = sp.csr_matrix((np.asarray(lop.vals, np.float64),
+                         (lop.rows, lop.cols)), shape=(n16, n16))
+    x = np.zeros((n16, LP_LABELS))
+    x[seeds, seed_labels] = 1.0
+    for _ in range(LP_ITERS):
+        y = a16 @ x
+        row_sum = y.sum(axis=1, keepdims=True)
+        x = np.where(row_sum > 0, y / np.maximum(row_sum, 1e-12), x)
+        x[seeds] = 0.0
+        x[seeds, seed_labels] = 1.0
+    top2 = np.sort(x, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-3
+    dx = float(np.abs(lp.result - x).max())
+    check(lp.done and lp.iterations == LP_ITERS and dx < 1e-4,
+          "serving (f): label distributions within 1e-4 of float64")
+    check(np.array_equal(lp.labels[clear], x.argmax(axis=1)[clear]),
+          "serving (f): labels equal float64's wherever its margin > 1e-3")
+    log(f"serving (f) label propagation: scale {LP_SCALE}, {lop.nnz} "
+        f"entries, {LP_LABELS} labels, {LP_ITERS} passes in {t_lp:.1f} s; "
+        f"within {dx:.3e} of float64, labels equal on {int(clear.sum())} "
+        f"of {n16} vertices with a margin > 1e-3 [{card}]")
+
+    g = rmat(SPGEMM_SCALE, 16, seed=seed)
+    n13 = g.n_rows
+    a13 = sp.csr_matrix((np.ones(g.nnz), (g.rows, g.cols)),
+                        shape=(n13, n13))
+    a_store = TileStore.write(str(tmp / "g13"), to_chunked(g, T=4096,
+                                                           C=1024),
+                              binary=True)
+    out = str(tmp / "g13_aa")
+    with SharedScanScheduler(SEMSpMM(a_store, SEMConfig(),
+                                     device=dev)) as sched:
+        t0 = time.perf_counter()
+        tk = sched.submit(SessionSpec.spgemm(out, budget_bytes=256 << 20,
+                                             tile_rows_per_pass=1))
+        sched.drain()
+        t_g = time.perf_counter() - t0
+        check(tk.done and tk.error is None, "serving (f): SpGEMM retired")
+    with TileStore.open(out) as prod:
+        got = store_csr(prod)
+    aa = a13 @ a13
+    check(got.nnz == aa.nnz and (got != aa).nnz == 0,
+          "serving (f): SpGEMM product equal to scipy's A @ A")
+    sym = COO(n13, n13, np.concatenate([g.rows, g.cols]),
+              np.concatenate([g.cols, g.rows]), None)
+    keep = sym.rows != sym.cols
+    sym = COO(n13, n13, sym.rows[keep], sym.cols[keep], None).dedup()
+    s_store = TileStore.write(str(tmp / "s13"), to_chunked(sym, T=4096,
+                                                           C=1024),
+                              binary=True)
+    with SharedScanScheduler(SEMSpMM(s_store, SEMConfig(),
+                                     device=dev)) as sched:
+        t0 = time.perf_counter()
+        tri = sched.submit(SessionSpec.triangle_count(
+            budget_bytes=256 << 20, tile_rows_per_pass=1))
+        sched.drain()
+        t_t = time.perf_counter() - t0
+    s64 = sp.csr_matrix((np.ones(sym.nnz), (sym.rows, sym.cols)),
+                        shape=(n13, n13))
+    want_tri = np.asarray((s64 @ s64).multiply(s64).sum(axis=1)).ravel() / 2
+    check(tri.done and np.array_equal(tri.result, want_tri),
+          "serving (f): triangle counts equal the masked scipy product")
+    # partial products A @ A expands: sum over k of in-degree x out-degree
+    expands = {s: int((np.bincount(a.cols, minlength=a.n_rows) * np.bincount(
+        a.rows, minlength=a.n_rows).astype(np.int64)).sum())
+        for s, a in ((LP_SCALE, adj16), (SPGEMM_SCALE, g))}
+    check(expands[SPGEMM_SCALE] == tk.session.stats.expanded_products,
+          "serving (f): the job expanded every partial product once")
+    log(f"serving (f) SpGEMM: scale {SPGEMM_SCALE}, {g.nnz} edges, A @ A "
+        f"with {got.nnz} entries equal to scipy's, "
+        f"{expands[SPGEMM_SCALE]} partial products (scale {LP_SCALE}'s "
+        f"A @ A would expand {expands[LP_SCALE]}), {int(tk.result[3])} "
+        f"spills, {t_g:.1f} s; triangle counts "
+        f"({int(want_tri.sum() / 3)} triangles, "
+        f"{tri.session.stats.expanded_products} partial products) equal to "
+        f"the masked scipy product, {t_t:.1f} s [{card}]")
     return launches
 
 
@@ -1865,8 +2340,11 @@ def main() -> int:
         phase("engine", run_engine_phase, stores, pr_op, rng, dev, card)
         launches = phase("pagerank", run_pagerank_phase, stores, ct, adj,
                          pr_op, dev, card)
-        overlay_launches = phase("rings", run_rings_phase, stores, adj,
-                                 pr_op, rng, dev, card)
+        overlay_launches, sssp_ref = phase("rings", run_rings_phase, stores,
+                                           adj, pr_op, rng, dev, card)
+        serving_launches = phase("serving", run_serving_phase, stores, adj,
+                                 pr_op, sssp_ref, args.seed, rng, dev, card,
+                                 tmp)
         launches.update(phase("nmf", run_nmf_phase, args.scale, adj, ct,
                               stores, wide, cell, dev, card))
         phase("eigensolver", run_eigen_phase, wide, dev, card)
@@ -1924,6 +2402,7 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_diff")})
     kernels[0]["launches_overlay"] = overlay_launches
+    kernels[0]["launches_serving"] = serving_launches
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel ran on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,1 +1,2 @@
-"""Applications over the SpMM operator (PageRank)."""
+"""Applications over the SpMM operator (PageRank, NMF, the eigensolver,
+label propagation)."""

@@ -58,6 +58,21 @@ def dangling_vertices(adj: COO) -> np.ndarray:
     return out_degrees(adj) == 0
 
 
+def pagerank_session(adj: COO, *, damping: float = 0.85, max_iter: int = 30,
+                     tol: float = 1e-8, tenant_id: str = ""):
+    """Adapter for the serving runtime: a PageRank tenant for ``adj``.
+
+    Submit it to a :class:`repro_torch.runtime.scheduler.SharedScanScheduler`
+    whose store holds :func:`build_operator`'s ``P``; the session applies
+    :func:`pagerank`'s update step for step (on the host, in numpy), so
+    shared-scan serving returns the scores of a dedicated run.
+    """
+    from repro_torch.runtime.session import PageRankSession
+    return PageRankSession(adj.n_rows, dangling_vertices(adj),
+                           damping=damping, tol=tol, max_iter=max_iter,
+                           tenant_id=tenant_id)
+
+
 def pagerank_dense_reference(adj: COO, damping: float = 0.85,
                              max_iter: int = 30) -> np.ndarray:
     """Dense-matrix oracle for tests."""

@@ -315,6 +315,13 @@ class SEMSpMM:
         self._copy_stream = None
         self._slots: List[_PinnedSlot] = []
         self._next_slot = 0
+        # ``multiply``'s accumulator, kept between passes and refilled in
+        # place while the width holds (a serving wave's fixed capacity: no
+        # allocation per pass or per admission).  One pass at a time holds
+        # it, and the staging slots: threads sharing this executor (serving
+        # waves routed to one replica) take turns by ``_pass_lock``.
+        self._acc: Optional[torch.Tensor] = None
+        self._pass_lock = threading.Lock()
         if self.device.type == "cuda":
             self._compute_stream = torch.cuda.Stream(self.device)
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -694,9 +701,12 @@ class SEMSpMM:
         ``min_plus`` makes the pass one shortest-path relaxation.
         ``snapshot`` (optional) supplies a pre-taken delta snapshot, so a
         coordinator fanning one pass across several executors holds every
-        partial scan at one version."""
-        out, _ = self._multiply(x, boundary_hook=boundary_hook, cache=cache,
-                                semiring=semiring, snapshot=snapshot)
+        partial scan at one version.  The accumulator is the executor's
+        own, reused by every pass of the same width."""
+        with self._pass_lock:
+            out, self._acc = self._multiply(
+                x, self._acc, boundary_hook=boundary_hook, cache=cache,
+                semiring=semiring, snapshot=snapshot)
         return out
 
     def _multiply(self, x, acc: Optional[torch.Tensor] = None,
@@ -717,6 +727,11 @@ class SEMSpMM:
             acc = torch.full((self.n_tile_rows, self.T, p), ring.zero,
                              dtype=torch.float32, device=self.device)
         else:
+            if self._compute_stream is not None:
+                # a pass that raised (a replica's failed read) left its
+                # steps queued on the executor's stream: they land first
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._compute_stream)
             acc.fill_(ring.zero)
         if self._compute_stream is None:
             out = self._stream_pass(x_pad, acc, hook=boundary_hook,
@@ -793,9 +808,10 @@ class SEMSpMM:
         return self.store.stats
 
     def close(self) -> None:
-        """Release the store's file mappings, the IM-mode resident batches
-        and the pinned staging buffers.  Idempotent."""
+        """Release the store's file mappings, the IM-mode resident batches,
+        the accumulator and the pinned staging buffers.  Idempotent."""
         self._cached = None
+        self._acc = None
         for slot in self._slots:
             if slot.event is not None:
                 slot.event.synchronize()

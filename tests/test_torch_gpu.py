@@ -873,3 +873,175 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch, k3_calls, k4_calls):
     assert k4.LAUNCHES["ssd_chunked"] == k4_calls
     want, _ = model_api.forward(cpu, cfg, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The serving runtime on the card (select with ``-k serving``)
+# ---------------------------------------------------------------------------
+def _abs_product(st, x):
+    """|A|·|x| on the host: the scale a float result is held to."""
+    from repro_torch.core.spgemm import materialize_dense
+    return np.abs(materialize_dense(st)).astype(np.float64) @ np.abs(
+        x.astype(np.float64))
+
+
+def _within_scale(got, want, scale):
+    """Elementwise within 1e-5 of |A|·|x| (the module docstring's rule)."""
+    assert np.all(np.abs(got.astype(np.float64) - want) <= 1e-5 * scale)
+
+
+def _track_acc(sem):
+    """Record the accumulator each pass of ``sem`` fills."""
+    ptrs = []
+    real = sem._multiply
+
+    def tracking(*a, **kw):
+        out = real(*a, **kw)
+        ptrs.append(out[1].data_ptr())
+        return out
+    sem._multiply = tracking
+    return ptrs
+
+
+@pytest.mark.parametrize("operand", ["integer", "float"])
+def test_serving_scheduler_on_card_matches_cpu(cuda, stores, operand):
+    """A shared wave (8 one-shot tenants and a 3-column one, under a
+    4-column budget: several passes) on the card against the same wave
+    through the CPU engine: integer operands bit for bit, float ones
+    within 1e-5 of |A|·|x|; the same reports, one K1a launch per batch,
+    and one accumulator per width kept across passes."""
+    from repro_torch.runtime import MultiplyRequest, SharedScanScheduler
+    st = stores["val256"]
+    n = st.header["n_cols"]
+    r = np.random.default_rng(21)
+    xs = [(r.integers(-4, 5, (n, w)) if operand == "integer"
+           else r.standard_normal((n, w))).astype(np.float32)
+          for w in (1,) * 8 + (3,)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        sem = SEMSpMM(TileStore.open(st.path), SEMConfig(chunk_batch=53),
+                      device=dev)
+        sem.cfg.memory_budget_bytes = (sem.stream_overhead_bytes()
+                                       + 4 * sem.column_bytes()
+                                       + sem.column_bytes() // 2)
+        ptrs = _track_acc(sem)
+        sched = SharedScanScheduler(sem, use_cache=False)
+        reqs = [sched.submit(MultiplyRequest(x)) for x in xs]
+        sem_spmm.reset_launches()
+        sched.run()
+        runs.append((reqs, sched, sem_spmm.LAUNCHES["spmm_tiles_acc"],
+                     ptrs))
+    (reqs, sched, launches, ptrs), (want, cpu_sched, _, _) = runs
+    passes = sched.total_scan_passes()
+    assert passes == cpu_sched.total_scan_passes() >= 3
+    assert launches == passes * sched.sem.n_batches
+    assert [(p.wave_cols, p.bytes_read) for p in sched.reports] == \
+        [(p.wave_cols, p.bytes_read) for p in cpu_sched.reports]
+    assert len(set(ptrs)) == len({p.wave_cols for p in sched.reports})
+    for g, w, x in zip(reqs, want, xs):
+        if operand == "integer":
+            np.testing.assert_array_equal(g.result, w.result)
+        else:
+            _within_scale(g.result, w.result, _abs_product(st, x))
+
+
+def test_serving_midpass_admission_on_card(cuda, stores):
+    """An elastic wave on the card admits a query at a chunk-batch
+    boundary of an in-flight pass and delivers it from the stitched
+    partial passes: the CPU engine's bits, one K1a launch per batch and
+    one accumulator for the whole run."""
+    from repro_torch.runtime import (PowerIterationSession,
+                                     SharedScanScheduler)
+    st = stores["val256"]
+    n = st.header["n_cols"]
+    r = np.random.default_rng(22)
+    x = r.integers(-4, 5, n).astype(np.float32)
+    box = {}
+
+    def probe(sched, b):
+        if "req" not in box and sched.boundary_clock >= 4:
+            box["req"] = sched.query(x, tenant_id="midpass")
+    sem = SEMSpMM(TileStore.open(st.path), SEMConfig(chunk_batch=53),
+                  device=cuda)
+    ptrs = _track_acc(sem)
+    sched = SharedScanScheduler(sem, use_cache=False, elastic=True,
+                                capacity=6, boundary_probe=probe)
+    sched.submit(PowerIterationSession(r.standard_normal(n).astype(
+        np.float32), tol=0.0, max_iter=3))
+    sem_spmm.reset_launches()
+    sched.run()
+    req = box["req"]
+    assert req.done
+    assert sum(p.admitted_midpass for p in sched.reports) == 1
+    assert sum(p.completed_midpass for p in sched.reports) == 1
+    want = SEMSpMM(TileStore.open(st.path), SEMConfig(chunk_batch=53),
+                   device="cpu").multiply(x[:, None])[:, 0]
+    np.testing.assert_array_equal(req.result, want)
+    passes = sched.total_scan_passes()
+    assert sem_spmm.LAUNCHES["spmm_tiles_acc"] == passes * sem.n_batches
+    assert len(ptrs) == passes and len(set(ptrs)) == 1
+
+
+def _replica_copy(st, tmp_path):
+    import shutil
+    p = str(tmp_path / "copy")
+    shutil.copy(st.path + ".bin", p + ".bin")
+    shutil.copy(st.path + ".json", p + ".json")
+    return p
+
+
+def test_serving_replica_failover_on_card(cuda, stores, tmp_path):
+    """A replica whose read fails mid-pass on the card: the pass is retried
+    on the other copy with the CPU engine's bits; once restored, the
+    failed executor (its staging slots, events and stream left by the
+    abandoned pass) serves a pass with the same bits."""
+    from repro_torch.runtime import ReplicaSet
+    st = stores["val256"]
+    n = st.header["n_cols"]
+    x = np.random.default_rng(23).integers(-4, 5, (n, 4)).astype(np.float32)
+    want = SEMSpMM(TileStore.open(st.path), SEMConfig(chunk_batch=53),
+                   device="cpu").multiply(x)
+    rs = ReplicaSet([st.path, _replica_copy(st, tmp_path)],
+                    SEMConfig(chunk_batch=53), devices=[cuda, cuda])
+    victim = rs.router.ranked()[0]
+    real = rs.execs[victim].store.read_batch_raw
+    calls = {"n": 0}
+
+    def dying(start, count):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise OSError("replica removed mid-run")
+        return real(start, count)
+    rs.execs[victim].store.read_batch_raw = dying
+    np.testing.assert_array_equal(rs.multiply(x), want)
+    assert not rs.router.states[victim].healthy
+    rs.execs[victim].store.read_batch_raw = real
+    rs.router.restore(victim)
+    rs.router.fail(1 - victim, OSError("drained for the check"))
+    np.testing.assert_array_equal(rs.multiply(x), want)
+    assert rs.router.states[victim].scans == 1
+    rs.close()
+
+
+def test_serving_fleet_two_waves_on_one_card(cuda, stores, tmp_path):
+    """Two waves as threads over two copies on one card: every one-shot
+    tenant gets the CPU engine's bits, and the fleet reads the store once
+    per pass it made."""
+    from repro_torch.runtime import ReplicaSet, ServingFleet
+    st = stores["val256"]
+    n = st.header["n_cols"]
+    r = np.random.default_rng(24)
+    xs = [r.integers(-4, 5, n).astype(np.float32) for _ in range(12)]
+    cpu = SEMSpMM(TileStore.open(st.path), SEMConfig(chunk_batch=53),
+                  device="cpu")
+    rs = ReplicaSet([st.path, _replica_copy(st, tmp_path)],
+                    SEMConfig(chunk_batch=53), devices=[cuda, cuda])
+    with ServingFleet(rs, n_waves=2, use_cache=False) as fleet:
+        reqs = [fleet.query(x, tenant_id=f"q{i}") for i, x in enumerate(xs)]
+        fleet.drain(timeout=120)
+        assert {q.wave_id for q in reqs} == {0, 1}
+        for q, x in zip(reqs, xs):
+            np.testing.assert_array_equal(q.result,
+                                          cpu.multiply(x[:, None])[:, 0])
+        assert fleet.io_stats.bytes_read == \
+            fleet.total_scan_passes() * st.nbytes
