@@ -59,6 +59,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    beside queries, a two-wave fleet over two copies and a replica failing
    mid-pass), and label propagation, SpGEMM and triangle-count sessions on
    small graphs, each against its float64 or scipy oracle;
+6d. the cross-host tier, on phase 3's stores and 6c's copies: two
+   in-process ``HostServer``s on the card (one wave each, a copy each)
+   behind a ``ClusterFrontDoor`` over loopback: (a) 4 PageRank tenants and
+   4 integer queries routed over the valued store's copies, within phase
+   6's limits and 1e-5 of |P|·|x|; (b) a partitioned integer query over
+   the binary store's copies, a slab a host, equal to float64 bit for bit;
+   (c) one host killed mid-pass while a BFS and 4 queries run: evicted,
+   every result replayed bit for bit; (d) ``python -m
+   repro_torch.net.host`` as its own process on the card, one query bit
+   for bit, exit 0 on ``shutdown``; bytes and K1a launches a whole number
+   of passes throughout, and the time to ship a 4,194,304-float result
+   plane over loopback;
 7. NMF (k = 16, 3 iterations): over SEM stores of A and Aᵀ against IM, at
    ``--scale`` with the gather kernel, and on the densify cell's stores with
    the densify kernel (SEM: K1b, IM: K2 mxu) against the gather kernel;
@@ -1312,7 +1324,10 @@ def run_serving_phase(stores, adj, pr_op, sssp_ref, seed, rng, dev, card,
     two-wave fleet over two copies and a replica's failure mid-pass; then
     (f) label propagation, SpGEMM and triangle-count sessions on small
     graphs.  ``sssp_ref`` is phase 6b's SSSP source and scipy's BFS
-    distances from it.  Returns K1a's launches over (a)-(e)."""
+    distances from it.  Returns K1a's launches over (a)-(e) and the
+    oracles phase 6d reuses: PageRank after SERVE_CACHED_ITERS iterations,
+    the 8 integer operands and their float64 products (A @ X and |A| @ |X|
+    on the valued store, A @ X on the binary one)."""
     import scipy.sparse as sp
     from repro_torch.apps.labelprop import build_operator as lp_operator
     from repro_torch.apps.labelprop import labelprop_session
@@ -1648,6 +1663,295 @@ def run_serving_phase(stores, adj, pr_op, sssp_ref, seed, rng, dev, card,
         f"({int(want_tri.sum() / 3)} triangles, "
         f"{tri.session.stats.expanded_products} partial products) equal to "
         f"the masked scipy product, {t_t:.1f} s [{card}]")
+    return launches, dict(pagerank=oracle[SERVE_CACHED_ITERS], xs=xs,
+                          want=want, scale=scale, want_bin=want_bin)
+
+
+# -- phase 6d: the cross-host tier -------------------------------------------
+NET_HEARTBEAT_S, NET_MISS_LIMIT = 0.2, 3
+NET_PR_TENANTS, NET_QUERIES = 4, 4   # (a): PageRank at 5 iterations, as 6c's
+NET_PLANE = 1 << 22                  # a scale-22 result plane, float32
+NET_WAIT_S = 300                     # bound on any one wait of the phase
+
+
+def store_copy(path: str, copy: Path) -> str:
+    """``path``'s store copied to ``copy`` (6c's copy when it is there)."""
+    for ext in (".bin", ".json"):
+        if not Path(str(copy) + ext).exists():
+            shutil.copyfile(path + ext, str(copy) + ext)
+    return str(copy)
+
+
+def plane_seconds(n: int, reps: int = 5):
+    """Seconds of a WireClient call whose reply carries one n-float32
+    plane over loopback (the request is a bare header); the first call,
+    which connects, is not counted."""
+    import asyncio
+    from repro_torch.net import WireClient, WireServer
+    plane = np.arange(n, dtype=np.float32)
+
+    async def go():
+        async def serve(op, header, planes):
+            return {}, [plane]
+        server = WireServer(serve)
+        client = WireClient("127.0.0.1", await server.start(), deadline=60)
+        secs = []
+        try:
+            for _ in range(reps + 1):
+                t0 = time.perf_counter()
+                _, got = await client.call("plane")
+                secs.append(time.perf_counter() - t0)
+            check(np.array_equal(got[0], plane),
+                  "cross-host: the plane arrived intact")
+        finally:
+            await client.close()
+            await server.close()
+        return secs[1:]
+    return asyncio.run(asyncio.wait_for(go(), NET_WAIT_S))
+
+
+def net_cluster(paths, dev):
+    """Two in-process hosts on the card, a copy and one wave each, behind
+    one front door; returns (hosts, front door, host keys)."""
+    from repro_torch.core.sem import SEMConfig
+    from repro_torch.net import ClusterFrontDoor, HostServer
+    from repro_torch.runtime import ReplicaSet, ServingFleet
+    hosts = [HostServer(ServingFleet(ReplicaSet(
+        [p], SEMConfig(memory_budget_bytes=4 << 30, kernel_variant="gather"),
+        devices=[dev]), n_waves=1, use_cache=False)) for p in paths]
+    ports = [h.start() for h in hosts]
+    fd = ClusterFrontDoor(heartbeat_interval=NET_HEARTBEAT_S,
+                          miss_limit=NET_MISS_LIMIT)
+    return hosts, fd, [fd.add_host("127.0.0.1", p) for p in ports]
+
+
+def host_passes(label, hosts, nbytes: int, n_batches: int, launches: int,
+                before=None):
+    """Each host's fleet read its store once a pass, and K1a ran once a
+    batch of every pass since ``before`` (the hosts' earlier pass counts);
+    returns the hosts' passes since then."""
+    passes = [h.fleet.total_scan_passes() for h in hosts]
+    for h, n in zip(hosts, passes):
+        check(h.fleet.io_stats.bytes_read == n * nbytes,
+              f"cross-host {label}: a host's bytes_read == passes x nbytes")
+    new = [a - b for a, b in zip(passes, before or [0] * len(hosts))]
+    check(launches == sum(new) * n_batches,
+          f"cross-host {label}: one K1a launch per batch and pass")
+    return new
+
+
+def run_net_phase(stores, adj, sssp_ref, oracles, dev, card, tmp):
+    """Phase 6d: the cross-host tier over phase 3's scale-22 stores, with
+    6c's copies and oracles (see the module docstring).  Returns K1a's
+    launches over (a)-(c)."""
+    import os
+    import queue
+    import threading
+    from types import SimpleNamespace
+    from repro_torch.apps.pagerank import dangling_vertices
+    from repro_torch.kernels import sem_spmm
+    from repro_torch.net import ClusterFrontDoor
+    from repro_torch.runtime import SessionSpec
+    t_phase = time.perf_counter()
+    val, bin_ = stores["val"], stores["bin"]
+    n = adj.n_rows
+    xs, want, scale = oracles["xs"], oracles["want"], oracles["scale"]
+    want_bin = oracles["want_bin"].astype(np.float32)
+    src, dist = sssp_ref
+    launches = 0
+
+    def k1a():
+        return sem_spmm.LAUNCHES["spmm_tiles_acc"]
+
+    secs = plane_seconds(NET_PLANE)
+    log(f"cross-host: a {NET_PLANE}-float32 result plane "
+        f"({4 * NET_PLANE} B) over loopback in {np.median(secs):.4f} s "
+        f"(median of {len(secs)}; min {min(secs):.4f}, max "
+        f"{max(secs):.4f}) [{card}]")
+
+    # (a) routed tenants on the valued store's two copies
+    hosts, fd, keys = net_cluster(
+        [val.path, store_copy(val.path, tmp / "val_copy")], dev)
+    dampings = SERVE_DAMPINGS[:NET_PR_TENANTS]
+    mask = dangling_vertices(adj)
+    try:
+        sem_spmm.reset_launches()
+        t0 = time.perf_counter()
+        prs = [fd.submit(SessionSpec.pagerank(
+            n, mask, damping=d, tol=0.0, max_iter=SERVE_CACHED_ITERS,
+            tenant_id=f"pr{d}")) for d in dampings]
+        qs = [fd.submit(SessionSpec.multiply(x, tenant_id=f"q{i}"))
+              for i, x in enumerate(xs[:NET_QUERIES])]
+        fd.drain(prs + qs, timeout=NET_WAIT_S)
+        t_a = time.perf_counter() - t0
+        check({t.host_key for t in prs + qs} == set(keys),
+              "cross-host (a): both hosts served")
+        ewma = [h.fleet.stats()["ewma_pass_s"] for h in hosts]
+    finally:
+        fd.close()
+        for h in hosts:
+            h.stop()
+    launches += k1a()
+    passes = host_passes("(a)", hosts, val.nbytes, hosts[0].fleet.replicas
+                         .n_batches, k1a())
+    pr = check_pagerank("net (a)", [SimpleNamespace(
+        done=t.done, result=t.result, damping=d)
+        for t, d in zip(prs, dampings)],
+        oracles["pagerank"][:, :NET_PR_TENANTS])
+    q = check_queries("net (a)", [t.result for t in qs],
+                      want[:, :NET_QUERIES], scale[:, :NET_QUERIES])
+    log(f"cross-host (a) routed: {pr}; {q}; passes per host {passes}, "
+        f"s/pass (stats EWMA) {[round(e, 4) for e in ewma]}; {t_a:.1f} s "
+        f"for the mix [{card}]")
+
+    # (b) a partitioned query and (c) a host killed mid-pass, on the
+    # binary store's two copies
+    hosts, fd, keys = net_cluster(
+        [bin_.path, store_copy(bin_.path, tmp / "bin_copy")], dev)
+    nb = hosts[0].fleet.replicas.n_batches
+    try:
+        sem_spmm.reset_launches()
+        t0 = time.perf_counter()
+        part = fd.submit(SessionSpec.multiply(xs[0], tenant_id="part"),
+                         partitioned=True)
+        (got,) = fd.drain([part], timeout=NET_WAIT_S)
+        t_b = time.perf_counter() - t0
+        check(np.array_equal(got, want_bin[:, 0]),
+              "cross-host (b): the partitioned query equals float64 bit "
+              "for bit")
+        slabs = [rs for h in hosts for rs in h._slabs.values()]
+        check(len(slabs) == 2 and all(h.slab_scans == 1 for h in hosts),
+              "cross-host (b): a slab on each host")
+        check(all(ex.device.type == "cuda" for rs in slabs
+                  for ex in rs.execs), "cross-host (b): slabs on the card")
+        check(sum(rs.io_stats.bytes_read for rs in slabs) == bin_.nbytes,
+              "cross-host (b): the slabs read the store once")
+        slab_batches = [rs.n_batches for rs in slabs]
+        check(k1a() == sum(slab_batches),
+              "cross-host (b): one K1a launch per slab batch")
+        launches += k1a()
+        log(f"cross-host (b) partitioned: p = 1 equal to float64 bit for "
+            f"bit; slabs of {slab_batches} batches ({nb} in the store), "
+            f"{k1a()} K1a launches, {t_b:.2f} s [{card}]")
+
+        sem_spmm.reset_launches()
+        before = [h.fleet.total_scan_passes() for h in hosts]
+        bfs = fd.submit(SessionSpec.bfs(np.array([src]), n, tenant_id="bfs"))
+        cqs = [fd.submit(SessionSpec.multiply(x, tenant_id=f"c{i}"))
+               for i, x in enumerate(xs[:NET_QUERIES])]
+        vi = keys.index(bfs.host_key)
+        victim = hosts[vi]
+        deadline = time.monotonic() + NET_WAIT_S
+        while (victim.fleet.total_scan_passes() - before[vi] < 1
+               or not victim.fleet.waves[0].in_pass):
+            check(time.monotonic() < deadline,
+                  "cross-host (c): the victim began its second pass")
+            time.sleep(0.002)
+        kill_pass = victim.fleet.total_scan_passes() - before[vi] + 1
+        t_kill = time.perf_counter()
+        victim._loop.call_soon_threadsafe(victim._shutdown.set)
+        while not fd.evicted:
+            check(time.monotonic() < deadline,
+                  "cross-host (c): the killed host was evicted")
+            time.sleep(0.002)
+        t_evict = time.perf_counter() - t_kill
+        # fewer misses than the limit: the deliver stream's lost
+        # connection evicted the host before its heartbeat did
+        misses = fd.hosts[keys[vi]].heartbeat.misses
+        # the dead host's compute ends too: its wave finishes the pass in
+        # flight and stops (the endpoint is already gone)
+        victim.stop()
+        fd.drain([bfs] + cqs, timeout=NET_WAIT_S)
+        t_done = time.perf_counter() - t_kill
+        check(fd.evicted == [keys[vi]],
+              "cross-host (c): the evicted host is the killed one")
+        check(bfs.resubmits >= 1 and bfs.host_key != keys[vi],
+              "cross-host (c): the BFS was replayed on the survivor")
+        check(np.array_equal(bfs.result, np.where(
+            np.isfinite(dist), dist, -1).astype(np.int32)),
+              "cross-host (c): BFS levels equal phase 6b's distances")
+        replayed = sum(t.resubmits for t in [bfs] + cqs)
+    finally:
+        fd.close()
+        for h in hosts:
+            h.stop()
+    launches += k1a()
+    passes = host_passes("(c)", hosts, bin_.nbytes, nb, k1a(), before)
+    q = check_queries("net (c)", [t.result for t in cqs],
+                      want_bin[:, :NET_QUERIES])
+    log(f"cross-host (c) failover: host {vi} killed in its pass "
+        f"{kill_pass} of the BFS, evicted after {t_evict:.3f} s (heartbeat "
+        f"{NET_HEARTBEAT_S} s, {misses} of {NET_MISS_LIMIT} misses by "
+        f"then), the last result {t_done:.2f} s after the kill; "
+        f"{replayed} tenants replayed; BFS equal to phase 6b's distances, "
+        f"{q}; passes per host {passes} [{card}]")
+
+    # (d) the CLI as its own process, on the card by default
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.net.host", "--store",
+           bin_.path, "--store", store_copy(bin_.path, tmp / "bin_copy"),
+           "--waves", "1"]
+    errs = open(tmp / "host_cli.err", "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=errs,
+                            text=True, env=env)
+    try:
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
+                         daemon=True).start()
+        try:
+            line = lines.get(timeout=NET_WAIT_S)
+        except queue.Empty:
+            line = ""
+        if not line.startswith("LISTENING "):
+            errs.seek(0)
+            check(False, f"cross-host (d): the CLI host printed its port "
+                  f"({line!r}; its stderr ends: {errs.read()[-2000:]})")
+        t_up = time.perf_counter() - t0
+        with ClusterFrontDoor(heartbeat_interval=NET_HEARTBEAT_S,
+                              miss_limit=NET_MISS_LIMIT) as fd:
+            key = fd.add_host("127.0.0.1", int(line.split()[1]))
+            t1 = time.perf_counter()
+            (got,) = fd.drain([fd.submit(SessionSpec.multiply(
+                xs[1], tenant_id="cli"))], timeout=NET_WAIT_S)
+            t_q = time.perf_counter() - t1
+            check(np.array_equal(got, want_bin[:, 1]),
+                  "cross-host (d): the CLI host's query equals float64 bit "
+                  "for bit")
+            # the host's own gauges, as its heartbeat replies carry them:
+            # once a beat reports the pass, the idle host's next beats
+            # hold still
+            deadline = time.monotonic() + NET_WAIT_S
+            while fd.hosts[key].gauges.get("scan_passes", 0) < 1:
+                check(time.monotonic() < deadline,
+                      "cross-host (d): a heartbeat reported the pass")
+                time.sleep(0.02)
+            time.sleep(3 * NET_HEARTBEAT_S)
+            g = fd.hosts[key].gauges
+            fd.shutdown_hosts()
+        t1 = time.perf_counter()
+        rc = proc.wait(timeout=60)
+        t_exit = time.perf_counter() - t1
+        check(rc == 0, f"cross-host (d): the CLI host exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        errs.close()
+    cli_k1a = g["kernel_launches"]["spmm_tiles_acc"]
+    check(g["scan_passes"] >= 1 and g["io_stats"]["bytes_read"]
+          == g["scan_passes"] * bin_.nbytes,
+          "cross-host (d): the CLI host read its store once a pass")
+    check(cli_k1a == g["scan_passes"] * nb,
+          "cross-host (d): the CLI host ran K1a once a batch and pass "
+          "(on the card)")
+    log(f"cross-host (d) CLI host: listening after {t_up:.1f} s, a query "
+        f"p = 1 equal to float64 bit for bit in {t_q:.2f} s "
+        f"({g['scan_passes']} pass, {cli_k1a} K1a launches in its process, "
+        f"s/pass EWMA {g['ewma_pass_s']:.4f}), exit 0 {t_exit:.2f} s after "
+        f"shutdown [{card}]")
+    log(f"cross-host: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
 
@@ -2342,9 +2646,11 @@ def main() -> int:
                          pr_op, dev, card)
         overlay_launches, sssp_ref = phase("rings", run_rings_phase, stores,
                                            adj, pr_op, rng, dev, card)
-        serving_launches = phase("serving", run_serving_phase, stores, adj,
-                                 pr_op, sssp_ref, args.seed, rng, dev, card,
-                                 tmp)
+        serving_launches, oracles = phase(
+            "serving", run_serving_phase, stores, adj, pr_op, sssp_ref,
+            args.seed, rng, dev, card, tmp)
+        net_launches = phase("cross-host", run_net_phase, stores, adj,
+                             sssp_ref, oracles, dev, card, tmp)
         launches.update(phase("nmf", run_nmf_phase, args.scale, adj, ct,
                               stores, wide, cell, dev, card))
         phase("eigensolver", run_eigen_phase, wide, dev, card)
@@ -2403,6 +2709,7 @@ def main() -> int:
                 "max_abs_diff")})
     kernels[0]["launches_overlay"] = overlay_launches
     kernels[0]["launches_serving"] = serving_launches
+    kernels[0]["launches_net"] = net_launches
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel ran on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

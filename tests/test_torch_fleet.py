@@ -8,7 +8,9 @@ tickets) and ``tests/test_mutable.py``'s fleet under churn.
 Every executor runs on the CPU (``devices=["cpu", ...]``), where the plain
 step is deterministic, so the reference's bit-identity claims hold bit for
 bit on float operands; the waves are threads, as on the card.
-``test_api.py``'s ``frontdoor`` cases wait for the port of ``net/``.
+``test_api.py``'s ``frontdoor`` cases run here too, over the port's
+``net/``: a ``ClusterFrontDoor`` in front of one ``HostServer`` on the CPU
+(the rest of the cross-host tier is in ``tests/test_torch_net.py``).
 """
 import json
 import shutil
@@ -29,6 +31,7 @@ from repro.runtime import PowerIterationSession as RefPower
 from repro_torch.core.sem import SEMConfig, SEMSpMM
 from repro_torch.distributed.shard_scan import ShardedSEMSpMM
 from repro_torch.io.storage import IOStats, TileStore, UpdateBatch
+from repro_torch.net import ClusterFrontDoor, HostServer
 from repro_torch.runtime import (Executor, MultiplyRequest, Mutable,
                                  PowerIterationSession, ReplicaSet,
                                  ServingFleet, SessionSpec,
@@ -473,7 +476,7 @@ def test_ticket_wait_timeout_callbacks_and_error():
 # ---------------------------------------------------------------------------
 # The Submitter protocol (tests/test_api.py's scheduler and fleet cases)
 # ---------------------------------------------------------------------------
-SUBMITTERS = ["scheduler", "fleet"]
+SUBMITTERS = ["scheduler", "fleet", "frontdoor"]
 
 
 def make_submitter(kind, path):
@@ -483,7 +486,19 @@ def make_submitter(kind, path):
                     device="cpu"), use_cache=False)
         return sched, sched.close
     fleet = ServingFleet(replica_set([path], n=1, batch=64), n_waves=1)
-    return fleet, fleet.close
+    if kind == "fleet":
+        return fleet, fleet.close
+    host = HostServer(fleet)
+    port = host.start()
+    fd = ClusterFrontDoor(heartbeat_interval=0.1)
+    fd.add_host("127.0.0.1", port)
+
+    def cleanup():
+        try:
+            fd.close()
+        finally:
+            host.stop()
+    return fd, cleanup
 
 
 @pytest.fixture(params=SUBMITTERS)
@@ -530,7 +545,15 @@ def test_submitter_stats_json_safe_with_common_gauges(submitter,
     submitter.submit(SessionSpec.multiply(
         np.ones(small_valued.n_cols, np.float32), tenant_id="s"))
     submitter.drain(timeout=120)
-    stats = submitter.stats()
+    # the front door's gauges are heartbeat-fed, so the drained state may
+    # trail the drain by a beat
+    deadline = time.monotonic() + 10
+    while True:
+        stats = submitter.stats()
+        if (stats["backlog_cols"] == 0 and stats["pending_sessions"] == 0) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
     assert stats == json.loads(json.dumps(stats))
     assert stats["backlog_cols"] == 0
     assert stats["pending_sessions"] == 0

@@ -2,7 +2,8 @@
 gather kernel (K1a, and K2 through it), the densify kernel (K1b, and
 K2-mxu through it), flash attention (K3) and the SSD chunk scan (K4); and
 the engine's plain steps on the card (the ring step, the delta overlay's
-scatter and fold, the sharded scan's threads) against the CPU engine.
+scatter and fold, the sharded scan's threads), the serving runtime and
+the cross-host tier's hosts against the CPU engine.
 
 Small shapes; every test needs a card and skips without one (decided in the
 ``cuda`` fixture, never at import).  Run on a machine with a card:
@@ -1045,3 +1046,132 @@ def test_serving_fleet_two_waves_on_one_card(cuda, stores, tmp_path):
                                           cpu.multiply(x[:, None])[:, 0])
         assert fleet.io_stats.bytes_read == \
             fleet.total_scan_passes() * st.nbytes
+
+
+# ---------------------------------------------------------------------------
+# The cross-host tier on the card (select with ``-k net``)
+# ---------------------------------------------------------------------------
+def _net_cluster(cuda, paths):
+    """Two hosts on the card (the gather kernel, one wave, a copy each)
+    behind one front door; returns (hosts, front door, keys)."""
+    from repro_torch.net import ClusterFrontDoor, HostServer
+    from repro_torch.runtime import ReplicaSet, ServingFleet
+    hosts = [HostServer(ServingFleet(ReplicaSet(
+        [p], SEMConfig(chunk_batch=53, kernel_variant="gather"),
+        devices=[cuda]), n_waves=1, use_cache=False)) for p in paths]
+    ports = [h.start() for h in hosts]
+    fd = ClusterFrontDoor(heartbeat_interval=0.1, miss_limit=2)
+    return hosts, fd, [fd.add_host("127.0.0.1", p) for p in ports]
+
+
+def _cpu_product(st, x):
+    return SEMSpMM(TileStore.open(st.path), SEMConfig(chunk_batch=53),
+                   device="cpu").multiply(x[:, None] if x.ndim == 1
+                                          else x)
+
+
+def test_net_two_hosts_on_card_match_cpu(cuda, stores, tmp_path):
+    """Routed integer queries over two hosts on the card: the CPU engine's
+    bits, both hosts serving, each host's store read once a pass and K1a
+    launched once a batch and pass."""
+    from repro_torch.runtime import SessionSpec
+    st = stores["bin4096"]
+    n = st.header["n_cols"]
+    r = np.random.default_rng(31)
+    xs = [r.integers(-4, 5, n).astype(np.float32) for _ in range(5)]
+    xs.append(r.integers(-4, 5, (n, 3)).astype(np.float32))
+    hosts, fd, keys = _net_cluster(cuda, [st.path,
+                                          _replica_copy(st, tmp_path)])
+    try:
+        sem_spmm.reset_launches()
+        tickets = [fd.submit(SessionSpec.multiply(x, tenant_id=f"q{i}"))
+                   for i, x in enumerate(xs)]
+        results = fd.drain(tickets, timeout=120)
+        assert {t.host_key for t in tickets} == set(keys)
+    finally:
+        fd.close()
+        for h in hosts:
+            h.stop()
+    for got, x in zip(results, xs):
+        want = _cpu_product(st, x)
+        np.testing.assert_array_equal(got, want[:, 0] if x.ndim == 1
+                                      else want)
+    passes = [h.fleet.total_scan_passes() for h in hosts]
+    for h, p in zip(hosts, passes):
+        assert p >= 1 and h.fleet.io_stats.bytes_read == p * st.nbytes
+    assert sem_spmm.LAUNCHES["spmm_tiles_acc"] == \
+        sum(passes) * hosts[0].fleet.replicas.n_batches
+
+
+def test_net_partitioned_query_on_card(cuda, stores, tmp_path):
+    """A partitioned query (a slab a host, both on the card): the CPU
+    engine's bits for a one-shot multiply and an iterative BFS; K1a once
+    per slab batch of every slab pass (T = 256: the store has tile rows to
+    split)."""
+    from repro_torch.runtime import SessionSpec
+    st = stores["bin256"]
+    n = st.header["n_cols"]
+    x = np.random.default_rng(32).integers(-4, 5, (n, 2)).astype(np.float32)
+    hosts, fd, _ = _net_cluster(cuda, [st.path, _replica_copy(st, tmp_path)])
+    try:
+        sem_spmm.reset_launches()
+        part = fd.submit(SessionSpec.multiply(x, tenant_id="p"),
+                         partitioned=True)
+        bfs = fd.submit(SessionSpec.bfs(np.array([0]), n, tenant_id="b"),
+                        partitioned=True)
+        got, levels = fd.drain([part, bfs], timeout=120)
+        slabs = [rs for h in hosts for rs in h._slabs.values()]
+        assert len(slabs) == 2
+        assert all(ex.device.type == "cuda" for rs in slabs
+                   for ex in rs.execs)
+        scans = sum(h.slab_scans for h in hosts)
+        assert sem_spmm.LAUNCHES["spmm_tiles_acc"] == \
+            scans // 2 * sum(rs.n_batches for rs in slabs)
+    finally:
+        fd.close()
+        for h in hosts:
+            h.stop()
+    np.testing.assert_array_equal(got, _cpu_product(st, x))
+    from repro_torch.runtime import BFSSession, SharedScanScheduler
+    sched = SharedScanScheduler(SEMSpMM(TileStore.open(st.path),
+                                        SEMConfig(chunk_batch=53),
+                                        device="cpu"))
+    want = sched.submit(BFSSession(np.array([0]), n))
+    sched.drain()
+    np.testing.assert_array_equal(levels, want.result)
+
+
+def test_net_killed_host_on_card(cuda, stores, tmp_path):
+    """A host killed while it serves: evicted, its tenants replayed on the
+    survivor with the CPU engine's bits."""
+    from repro_torch.runtime import SessionSpec
+    st = stores["bin4096"]
+    n = st.header["n_cols"]
+    r = np.random.default_rng(33)
+    xs = [r.integers(-4, 5, n).astype(np.float32) for _ in range(6)]
+    hosts, fd, keys = _net_cluster(cuda, [st.path,
+                                          _replica_copy(st, tmp_path)])
+    try:
+        tickets = [fd.submit(SessionSpec.multiply(x, tenant_id=f"k{i}"))
+                   for i, x in enumerate(xs)]
+        hosts[0]._loop.call_soon_threadsafe(hosts[0]._shutdown.set)
+        results = fd.drain(tickets, timeout=120)
+        assert fd.evicted == [keys[0]]
+        assert all(t.host_key == keys[1] for t in tickets if t.resubmits)
+    finally:
+        fd.close()
+        for h in hosts:
+            h.stop()
+    for got, x in zip(results, xs):
+        np.testing.assert_array_equal(got, _cpu_product(st, x)[:, 0])
+
+
+def test_net_build_host_defaults_to_the_card(cuda, stores, tmp_path):
+    """``build_host`` with no devices puts every executor on the card."""
+    from repro_torch.net import build_host
+    st = stores["bin4096"]
+    h = build_host([st.path, _replica_copy(st, tmp_path)], waves=1)
+    try:
+        assert [ex.device for ex in h.fleet.replicas.execs] == [cuda, cuda]
+    finally:
+        h.stop()

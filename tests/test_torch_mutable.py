@@ -225,3 +225,66 @@ def test_compacted_stores_cross_open(store_path, tmp_path, writer):
     np.testing.assert_array_equal(port.multiply(x), want)
     np.testing.assert_array_equal(ref.multiply(x), want)
     assert_same_run(port, ref)
+
+
+def test_cluster_update_fanout_routed_and_partitioned(store_path, tmp_path):
+    """``tests/test_mutable.py``'s cluster case on the port's ``net/``: two
+    CPU hosts over two copies behind one front door.  One update batch
+    fans out to both (version 1 on each); routed queries on either host
+    and a partitioned one serve the same post-update bits, which are the
+    reference engine's over the same base ⊕ delta."""
+    import shutil
+    import time
+    from repro_torch.net import ClusterFrontDoor, HostServer
+    from repro_torch.runtime import ReplicaSet, ServingFleet, SessionSpec
+    paths = [str(tmp_path / f"copy{i}") for i in range(2)]
+    for p in paths:
+        for ext in (".bin", ".json"):
+            shutil.copyfile(store_path + ext, p + ext)
+    n = TileStore.open(store_path).header["n_rows"]
+    hosts = [HostServer(ServingFleet(ReplicaSet([TileStore.open(p)],
+                                                devices=["cpu"]),
+                                     n_waves=1)) for p in paths]
+    door = ClusterFrontDoor(heartbeat_interval=0.1)
+    try:
+        for h in hosts:
+            door.add_host("127.0.0.1", h.start())
+        x = int_operand(n, k=2, seed=14)
+        y_pre = door.submit(SessionSpec.multiply(
+            x, tenant_id="pre")).wait(timeout=60)
+
+        ver = door.apply_updates(UpdateBatch.insert(*coords(n, 120, 15)))
+        assert ver == 1
+
+        routed = [door.submit(SessionSpec.multiply(
+            x, tenant_id=f"r{i}")).wait(timeout=60) for i in range(4)]
+        for y in routed[1:]:
+            assert np.array_equal(y, routed[0])
+        assert not np.array_equal(y_pre, routed[0])
+        assert all(h.fleet.total_scan_passes() > 0 for h in hosts)
+
+        part = door.submit(SessionSpec.multiply(x, tenant_id="p"),
+                           partitioned=True).wait(timeout=120)
+        assert np.array_equal(part, routed[0])
+
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            stats = door.stats()
+            if set(stats["versions"].values()) == {1}:
+                break
+            time.sleep(0.05)
+        assert stats["version_skew"] == 0
+        assert set(stats["versions"].values()) == {1}
+        assert stats["delta_nnz"] > 0
+    finally:
+        door.close()
+        for h in hosts:
+            h.stop()
+    rst = RefTileStore.open(store_path)
+    RefGraphHandle([rst]).apply_updates(
+        RefUpdateBatch.insert(*coords(n, 120, 15)))
+    want = RefSEMSpMM(rst, RefConfig(use_pallas=True)).multiply(x)
+    np.testing.assert_array_equal(routed[0], want)
+    np.testing.assert_array_equal(
+        y_pre, RefSEMSpMM(RefTileStore.open(store_path),
+                          RefConfig(use_pallas=True)).multiply(x))
