@@ -13,10 +13,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. set-up: an R-MAT graph (edge factor 16) made from ``--seed`` at
    ``--scale``, its PageRank operator written as a valued TileStore
    (T = 16384, C = 2048), the same pattern (Aᵀ's) as a binary store and an
-   ``.optimize()``d copy of that; A's pattern as a binary store; the
-   symmetrised pattern A + Aᵀ as a binary store; and the densify cell: the
-   same kinds of stores of an R-MAT graph at ``--mxu-scale`` with T = 2048,
-   C = 256;
+   ``.optimize()``d copy of that; the densify cell: the same kinds of
+   stores of an R-MAT graph at ``--mxu-scale`` with T = 2048, C = 256; A's
+   pattern as a binary store; and the densify cell graph's symmetrised
+   pattern A + Aᵀ as a binary store at the main path's T and C;
 4. kernels: the gather chunk-batch kernel (K1a) and its one-shot use (K2)
    against their plain versions at the main path's shapes (256-chunk
    batches of the real stores, p = 8): bit for bit on integer-valued data,
@@ -38,7 +38,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float64 scipy product, with the exact IOStats counts and one kernel
    launch per batch; a third pass of each runs under ``torch.profiler`` for
    the kernel's summed device time and the card's idle share;
-6. PageRank: 30 iterations over the SEM operator (K1a) and over the IM
+6. PageRank: 10 iterations over the SEM operator (K1a) and over the IM
    operator (K2), both with the gather kernel named, against a float64
    scipy power iteration;
 6b. rings and a mutable graph, on phase 3's stores: SSSP by min-plus
@@ -54,7 +54,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    engine's; a min-plus pass over 50,000 new weighted edges equal to its
    oracle, and its refusal of a log with deletions;
 6c. serving, on phase 3's stores: the shared-scan scheduler's waves (8
-   PageRank tenants and 8 queries in 30 passes, then with the hot-chunk
+   PageRank tenants and 8 queries in 6 passes, then with the hot-chunk
    cache, an elastic wave admitting queries mid-pass, SSSP and BFS tenants
    beside queries, a two-wave fleet over two copies and a replica failing
    mid-pass), and label propagation, SpGEMM and triangle-count sessions on
@@ -75,8 +75,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``--scale`` with the gather kernel, and on the densify cell's stores with
    the densify kernel (SEM: K1b, IM: K2 mxu) against the gather kernel;
 8. eigensolver: thick-restart Lanczos (k = 4) over the SEM operator of the
-   symmetrised graph, its basis on the card, against scipy's ``eigsh`` in
-   float64; then the same with the basis in a DenseStore (SEM-min);
+   symmetrised graph at ``--mxu-scale`` (scipy's float64 ``eigsh``, the
+   reference, takes most of a minute at ``--scale``), its basis on the
+   card, against ``eigsh``; then the same with the basis in a DenseStore
+   (SEM-min);
 9. Zamba2-7B at full width (81 layers, d_model 3584), float32 weights made
    from ``--seed`` on the card: a plain prefill (B = 2, L = 2048, both
    kernels' plain versions) in which every flash-attention (K3) and SSD
@@ -86,17 +88,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
    accuracy, and on the CUDA cores), their times before their redesigns,
    and SDPA as K3's yardstick; then the main path, the serving prefill
    ``model_api.forward(..., logits_last_only=True)`` through the kernels:
-   13 K3 and 81 K4 launches (calls; K4 runs four kernels a call), finite
-   logits no farther from the plain prefill's than twice the plain
-   prefill's own spread (the same prefill with K4 at Q = 128), and a traced
-   prefill's device time by kind of kernel;
-10. decode against prefill at full width: every layer's decode path on its
-   prefill inputs (a 128-token prompt), its increments within the
-   reference's decode tolerance, and the whole model's 128 decode steps
-   against the kernel prefill; then a ``BatchServer`` answers 4 requests
-   (4 slots, prompts of 64 tokens, 16 new tokens each);
+   13 K3 and 81 K4 launches (calls; K4 runs four kernels a call), each
+   attention sublayer and Mamba layer held, per token, within 2e-4 in
+   relative L2 of the same sublayer with the plain versions on the same
+   input; finite logits no farther from the plain prefill's than twice the
+   plain prefill's own spread (the same prefill with K4 at Q = 128), and a
+   traced prefill's device time by kind of kernel;
+10. decode against prefill at full width: 64 steps of
+   ``model_api.decode_step`` over a 64-token prompt with every layer's
+   input and output recorded; each layer's decode inputs then run through
+   the same layer as a prefill with the plain versions, and the decode
+   increments are held to the prefill's, per token within 2e-2 in relative
+   L2 and elementwise within the reference's decode tolerance; the last
+   logits aligned with the kernel prefill's; then a ``BatchServer``
+   answers 4 requests (4 slots, prompts of 16 tokens, 16 new tokens each);
 11. Mamba2-130M at full width: the same prefill checks (24 K4 launches)
-   and the same serving check.
+   and the same serving check;
+12. the attention families at full width, each made, run and freed in
+   turn, every K3 call of a plain prefill checked against the kernel, the
+   kernel prefill's K3 launches counted from 0 and its attention
+   sublayers held to the plain ones as in phase 9: Yi-9B at full depth
+   (48 layers, prefill B = 2, L = 2048: 48 K3 launches at hd 128 and
+   G = 8, K3 timed against its bound and SDPA; decode as in phase 10, per
+   token only; a ``BatchServer`` answering 4 requests); Yi-9B at one layer
+   end to end, where float32 rounding leaves logits comparable: the kernel
+   prefill's last logits within 2e-4 of the plain prefill's, and 64
+   decode steps' logits within the reference's decode tolerance of the
+   plain prefill's; OLMoE-1B-7B (16 K3, each MoE layer's dropped share
+   logged; 4 requests served); Gemma2-27B at 4 of its 46 layers (2 global
+   ones run K3 with softcap 50); InternVL2-2B (256 patches before 2048
+   tokens: K3 at L = 2304); Whisper-medium (1,500 frames, a decoder of
+   L = 384: 24 K3); Llama4-Scout at 2 of its 48 layers (top-1 routing, a
+   shared expert).
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without
@@ -345,10 +368,12 @@ def binary_tiles(ct):
         ct, vals=(lanes < ct.meta[:, 3:4]).astype(np.float32))
 
 
-def build_wide_stores(adj, tmp: Path):
-    """Set-up of the wide-operand phases at ``--scale``: A's binary store
+def build_wide_stores(adj, cell_adj, tmp: Path):
+    """Set-up of the wide-operand phases: A's binary store at ``--scale``
     and its ChunkedTiles (NMF; the PageRank stores hold Aᵀ's pattern), and
-    the symmetrised pattern A + Aᵀ as a binary store (the eigensolver)."""
+    the symmetrised pattern A + Aᵀ of the densify cell's graph
+    (``cell_adj``) as a binary store at the main path's T and C (the
+    eigensolver)."""
     from repro_torch.core.formats import COO, to_chunked
     from repro_torch.io.storage import TileStore
     t0 = time.perf_counter()
@@ -357,13 +382,15 @@ def build_wide_stores(adj, tmp: Path):
     log(f"set-up: A's binary store, {ct_a.n_chunks} chunks, {a.nbytes} B, "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sym = COO(adj.n_rows, adj.n_cols, np.concatenate([adj.rows, adj.cols]),
-              np.concatenate([adj.cols, adj.rows]), None).dedup()
+    sym = COO(cell_adj.n_rows, cell_adj.n_cols,
+              np.concatenate([cell_adj.rows, cell_adj.cols]),
+              np.concatenate([cell_adj.cols, cell_adj.rows]), None).dedup()
     t1 = time.perf_counter()
     ct_s = to_chunked(sym, T=T, C=C)
     t2 = time.perf_counter()
     sym_store = TileStore.write(str(tmp / "sym"), ct_s, binary=True)
-    log(f"set-up: A + Aᵀ binary store, {sym.nnz} entries, {ct_s.n_chunks} "
+    log(f"set-up: A + Aᵀ binary store of the densify cell's graph, "
+        f"{sym.n_rows} vertices, {sym.nnz} entries, {ct_s.n_chunks} "
         f"chunks, {sym_store.nbytes} B, {time.perf_counter() - t0:.1f} s "
         f"(union {t1 - t0:.1f} s, chunking {t2 - t1:.1f} s, writing "
         f"{time.perf_counter() - t2:.1f} s)")
@@ -837,8 +864,11 @@ def run_engine_phase(stores, pr_op, rng, dev, card):
     for name in ("bin", "binopt"):
         store = stores[name]
         sem = SEMSpMM(store, SEMConfig(chunk_batch=BATCH), device=dev)
-        for rep in range(3):        # cold, warm, warm under the profiler
-            traced = rep == 2
+        # cold, warm, warm under the profiler; the optimized store (7,484
+        # batches, seconds a pass) without the warm untraced pass
+        reps = 3 if name == "bin" else 2
+        for rep in range(reps):
+            traced = rep == reps - 1
             before = dataclasses.replace(store.stats)
             sem_spmm.reset_launches()
             with (profile(activities=[ProfilerActivity.CUDA]) if traced
@@ -930,12 +960,17 @@ def pagerank_f64(pr_op, dangling, iters: int, damping: float = 0.85):
     return x
 
 
+# PageRank's iterations: each SEM iteration is a pass over the store (about
+# a second), and 10 run every path of the phase
+PAGERANK_ITERS = 10
+
+
 def run_pagerank_phase(stores, ct, adj, pr_op, dev, card):
     from repro_torch.apps.common import IMOperator, SEMOperator
     from repro_torch.apps.pagerank import dangling_vertices, pagerank
     from repro_torch.core.sem import SEMConfig
     from repro_torch.kernels import sem_spmm
-    iters = 30
+    iters = PAGERANK_ITERS
     dangling = dangling_vertices(adj)
     ref = pagerank_f64(pr_op, dangling, iters)
     launches = {}
@@ -957,7 +992,7 @@ def run_pagerank_phase(stores, ct, adj, pr_op, dev, card):
         l1 = float(np.abs(res.scores - ref).sum())
         rel = float((np.abs(res.scores - ref) / ref).max())
         # float32 against float64: scores near 1/n carry ~7 digits, and each
-        # of the 30 contracting iterations rounds every row sum once more,
+        # of the contracting iterations rounds every row sum once more,
         # so a score's relative error is typically ~1e-6 and the L1 distance
         # of the two probability vectors ~1e-6 as well; the largest of 4M
         # relative errors is some 10x the typical one, ~1e-5.  The limits
@@ -1113,7 +1148,9 @@ def run_rings_phase(stores, adj, pr_op, rng, dev, card):
     for name in ("bin", "binopt"):
         store = TileStore.open(stores[name].path)
         sem = SEMSpMM(store, cfg, device=dev)
-        for _ in range(2):      # cold, then warm: the one compared
+        # the frozen passes, cold then warm (the one compared), on the raw
+        # store only: the optimized store's take seconds each
+        for _ in range(2 if name == "bin" else 0):
             frozen_y, t_frozen = timed_pass(sem, x)
             check(np.array_equal(frozen_y, frozen),
                   f"overlay {name}: the frozen pass equals scipy")
@@ -1140,8 +1177,9 @@ def run_rings_phase(stores, adj, pr_op, rng, dev, card):
             log(f"overlay {name} pass {rep}: equal to float64 (A + Δ) @ X, "
                 f"version 2, {n_delta} delta entries (padded to "
                 f"{padded_delta(n_delta)}), {sem.n_batches} batches = "
-                f"{launches} K1a launches; {t_over:.4f} s/pass against "
-                f"{t_frozen:.4f} s frozen (warm) [{card}]")
+                f"{launches} K1a launches; {t_over:.4f} s/pass"
+                + (f" against {t_frozen:.4f} s frozen (warm)"
+                   if name == "bin" else "") + f" [{card}]")
         if name == "bin":
             overlay_store, overlay_sem, overlay_y = store, sem, got
         else:
@@ -1198,11 +1236,12 @@ def run_rings_phase(stores, adj, pr_op, rng, dev, card):
 
 # -- phase 6c: serving ------------------------------------------------------
 SERVE_DAMPINGS = tuple(round(0.80 + 0.02 * i, 2) for i in range(8))
-# iterations: the shared wave's 30 as phase 6's PageRank; the cached wave,
-# the fleet and the elastic wave cut to the fewest that show their point
-# (a warm pass after the cold one; a second pass per wave; admission in
-# pass 2, completion in pass 3), for the phase's time
-SERVE_ITERS, SERVE_CACHED_ITERS, SERVE_ELASTIC_ITERS = 30, 5, 3
+# iterations, the fewest that show each wave's point, for the script's
+# time: the shared wave's 6 (8 tenants a pass from the second pass on, pass
+# 2 traced); the cached wave's, the fleet's and the elastic wave's (a warm
+# pass after the cold one; a second pass per wave; admission in pass 2,
+# completion in pass 3)
+SERVE_ITERS, SERVE_CACHED_ITERS, SERVE_ELASTIC_ITERS = 6, 5, 3
 SERVE_MIDPASS_AT = 170       # the boundary of pass 2 where queries arrive
 # (f): label propagation on a scale-16 graph; SpGEMM and triangle counts on
 # a scale-13 one (host numpy: their expanded products grow about 2.8x a
@@ -1370,7 +1409,8 @@ def run_serving_phase(stores, adj, pr_op, sssp_ref, seed, rng, dev, card,
             adj, damping=d, max_iter=iters, tol=0.0, tenant_id=f"pr{d}"))
             for d in SERVE_DAMPINGS[:k]]
 
-    # (a) the shared wave: 30 passes serve 8 x 30 + 8 tenant-passes
+    # (a) the shared wave: SERVE_ITERS passes serve 8 x SERVE_ITERS + 8
+    # tenant-passes
     sem = SEMSpMM(TileStore.open(val.path), cfg, device=dev)
     sched = SharedScanScheduler(sem, use_cache=False)
     prs = pr_tenants(sched, SERVE_ITERS)
@@ -2095,11 +2135,19 @@ def run_eigen_phase(wide, dev, card):
 
 # -- phases 9-11: the models ----------------------------------------------------
 PREFILL_B, PREFILL_L = 2, 2048      # the serving prefill at full width
-DECODE_L = 128                      # decode against prefill: prompt length
-SERVE_REQ, SERVE_PROMPT, SERVE_NEW = 4, 64, 16
-# Decode against prefill, layer by layer: the reference's
-# test_decode_matches_forward_prefix tolerance.
+# decode against prefill: prompt length (each step is tens of ms at full
+# width, and each layer's decode inputs are replayed as a prefill)
+DECODE_L = 64
+# the serving check: 4 requests of 16 prompt tokens and 16 new ones (a
+# prompt is fed through decode_step a token at a time, so its length adds
+# steps, not paths)
+SERVE_REQ, SERVE_PROMPT, SERVE_NEW = 4, 16, 16
+# Decode against prefill: the reference's test_decode_matches_forward_prefix
+# tolerance.
 DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3
+# A kernel prefill's logits against the plain prefill's, end to end: the
+# forward tolerance of tests/test_torch_models.py.
+LOGIT_TOL = 2e-4
 
 
 @contextlib.contextmanager
@@ -2129,19 +2177,24 @@ def rel_l2(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm())
 
 
-def prefill(model, cfg, tokens):
+def row_rel(got, want) -> torch.Tensor:
+    """Per token (row of the last axis), ``|got - want| / |want|`` in L2."""
+    return ((got - want).double().norm(dim=-1)
+            / want.double().norm(dim=-1))
+
+
+def prefill(model, cfg, batch):
     """One serving prefill, ``forward(..., logits_last_only=True)``, with
     its wall time (synchronised)."""
     from repro_torch.models import model_api
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _ = model_api.forward(model, cfg, {"tokens": tokens},
-                                  logits_last_only=True)
+    logits, _ = model_api.forward(model, cfg, batch, logits_last_only=True)
     torch.cuda.synchronize()
     return logits, time.perf_counter() - t0
 
 
-def attention_scale(q, k, v, causal: bool):
+def attention_scale(q, k, v, causal: bool, softcap: float = 0.0):
     """First-order error scale of attention at these inputs, per output
     element, in float64: ``E = sum_j p_j (S_j |v_j - o| + |v_j|)`` with p the
     softmax, o the output and ``S_j = scale * sum_d |q_d| |k_jd|`` the
@@ -2151,12 +2204,22 @@ def attention_scale(q, k, v, causal: bool):
     by the order of 2**-24 * sum_j p_j |v_j|.  So two float32 computations
     that sum in other orders differ by a small multiple of 1e-7 * E, and
     FLOAT_TOL * E leaves room; a dropped, doubled or wrongly masked key moves
-    the output by the size of v.  Also returns the float64 output."""
+    the output by the size of v.  A softcap ``tanh(s / cap) * cap`` shapes
+    p and moves no score's error up (its slope is at most 1).  Also returns
+    the float64 output and the underflow term ``U = tiny * sum_j |v_j|``
+    over the keys a query sees (``tiny``: float32's smallest normal,
+    2**-126): a weight below it may be held as zero (flushed) in one
+    computation and as a subnormal in the other, which moves the output by
+    at most ``tiny * |v_j|`` a key, however small E is.  The comparison's
+    limit is ``FLOAT_TOL * E + U``: U is some 1e-34 of the size of v, so it
+    only bears on outputs in float32's subnormal range."""
     B, L, H, hd = q.shape
     G = H // k.shape[2]
     scale = 1.0 / np.sqrt(hd)
     E = torch.empty(q.shape, dtype=torch.float64, device=q.device)
     out = torch.empty_like(E)
+    U = torch.empty_like(E)
+    tiny = torch.finfo(torch.float32).tiny
     future = torch.triu(torch.ones((L, L), dtype=torch.bool, device=q.device),
                         1)
     for b in range(B):
@@ -2164,19 +2227,26 @@ def attention_scale(q, k, v, causal: bool):
             qh = q[b, :, h].double() * scale
             kh, vh = k[b, :, h // G].double(), v[b, :, h // G].double()
             s = qh @ kh.T
+            if softcap > 0.0:
+                s = torch.tanh(s / softcap) * softcap
             if causal:
                 s.masked_fill_(future, float("-inf"))
             p = torch.softmax(s, dim=-1)
             o = p @ vh
             w = p * (qh.abs() @ kh.abs().T)
             e = p @ vh.abs()
-            for d0 in range(0, hd, 16):
-                sl = slice(d0, d0 + 16)
-                e[:, sl] += (w[..., None] * (vh[None, :, sl]
-                                             - o[:, None, sl]).abs()).sum(1)
+            # the (L, L, 32) weighted gaps in float32: a scale, not a result
+            w32, v32, o32 = w.float(), vh.float(), o.float()
+            for d0 in range(0, hd, 32):
+                sl = slice(d0, d0 + 32)
+                e[:, sl] += (w32[..., None] * (v32[None, :, sl]
+                                               - o32[:, None, sl]).abs()
+                             ).sum(1).double()
             E[b, :, h], out[b, :, h] = e, o
-            del s, p, w
-    return E, out
+            U[b, :, h] = tiny * (vh.abs().cumsum(0) if causal
+                                 else vh.abs().sum(0, keepdim=True))
+            del s, p, w, w32
+    return E, out, U
 
 
 def ssd_scale(plain, x, dt, A, Bm, Cm, D, Q: int):
@@ -2205,27 +2275,34 @@ def checked_calls(stats: dict):
     (``attention_scale``, ``ssd_scale``), as check_float holds the SpMM
     kernels.  ``stats`` gathers, per kernel, the calls, the largest
     difference and its share of the limit, and the first call's inputs (for
-    timing)."""
+    timing).  K3's limit adds ``attention_scale``'s underflow term."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ssd_chunk as k4
 
-    def note(name, args, kw, diff, share):
+    def note(name, args, kw, diff, share, worst=None):
         st = stats.setdefault(name, dict(calls=0, max_abs_diff=0.0,
                                          share=0.0))
         if not st["calls"]:
             st["first"] = ([a.clone() for a in args], dict(kw))
         st["calls"] += 1
         st["max_abs_diff"] = max(st["max_abs_diff"], diff)
+        if share >= st["share"] and worst is not None:
+            st["worst"] = worst
         st["share"] = max(st["share"], share)
 
     def k3_make(plain):
         def wrapped(q, k, v, **kw):
             want = plain(q, k, v, **kw)
             got = k3.flash_attention(q, k, v, **kw)
-            scale, _ = attention_scale(q, k, v, kw["causal"])
+            scale, _, under = attention_scale(q, k, v, kw["causal"],
+                                              kw.get("softcap", 0.0))
             err = (got - want).abs().double()
+            limit = FLOAT_TOL * scale + under
+            i = int((err / limit).argmax())
             note("K3", (q, k, v), kw, float(err.max()),
-                 float((err / (FLOAT_TOL * scale)).max()))
+                 float(err.flatten()[i] / limit.flatten()[i]),
+                 worst=tuple(float(t.flatten()[i])
+                             for t in (got, want, limit)))
             return want
         return wrapped
 
@@ -2246,9 +2323,9 @@ def checked_calls(stats: dict):
         yield
 
 
-def time_k3(first, card):
-    """K3's times on the first shared-attention layer's prefill inputs,
-    its bound and SDPA's time as the yardstick."""
+def time_k3(first, label, card):
+    """K3's times on the first attention layer's prefill inputs, its bound
+    and SDPA's time as the yardstick."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k3
     (q, k, v), kw = first
@@ -2266,10 +2343,12 @@ def time_k3(first, card):
     # at float32 accuracy on the tensor cores: the three-term TF32 split
     # does each product three times
     bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
-    log(f"K3 per call at {tuple(q.shape)} over {tuple(k.shape)}: {ms} ms "
-        f"(CUDA events, 10 calls), plain {plain_ms} ms, SDPA {library_ms} ms"
-        f" ({ms / library_ms:.3f}x SDPA's time; before the redesign "
-        f"{K3_BEFORE_MS} ms, {K3_BEFORE_MS / ms:.2f}x); bound on the tensor "
+    before = (f"; before the redesign {K3_BEFORE_MS} ms, "
+              f"{K3_BEFORE_MS / ms:.2f}x" if label == "zamba2-7b" else "")
+    log(f"K3 {label} per call at {tuple(q.shape)} over {tuple(k.shape)}: "
+        f"{ms} ms (CUDA events, 10 calls), plain {plain_ms} ms, SDPA "
+        f"{library_ms} ms ({ms / library_ms:.3f}x SDPA's time{before}); "
+        f"bound on the tensor "
         f"cores {bound_ms} ms ({bound_by}: 3 x {flops / 1e9:.2f} GFLOP "
         f"TF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes} B), on the "
         f"CUDA cores {core_ms} ms (float32 at {FP32_FLOPS_PER_S / 1e12:.0f} "
@@ -2320,10 +2399,14 @@ def time_k4(first, label, card):
                 bound_by=bound_by)
 
 
-def make_model(arch: str, seed: int, dev):
+def make_model(arch: str, seed: int, dev, depth: int = 0):
+    """The model of ``arch`` at full width (and full depth, or ``depth``
+    layers), float32 weights made from ``seed`` on the card."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model_api
     cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "float32 matmuls run in full float32 (TF32 off)")
@@ -2335,15 +2418,22 @@ def make_model(arch: str, seed: int, dev):
     check(n == model_api.n_params(cfg), f"{arch}: every parameter made")
     log(f"model {arch}: {n} parameters, {4 * n} B float32 on the card, made "
         f"from seed {seed} in {time.perf_counter() - t0:.1f} s; "
-        f"{cfg.n_layers} layers, d_model {cfg.d_model}")
+        f"{cfg.n_layers} layers" + (f" (of {get_config(arch).n_layers})"
+                                    if depth else "")
+        + f", d_model {cfg.d_model}")
     return cfg, model
+
+
+DISPATCH_KERNELS = ("scatter", "gather", "index", "scan", "sort", "radix",
+                    "one_hot", "cumsum")
 
 
 def prefill_breakdown(prof, secs: float) -> str:
     """Device time of a traced prefill by kind of kernel (K3, K4, matrix
-    products, the rest), the card's busy time and its idle share.  K4's
-    launches on the card are its four kernels' (ssd_chunk_cbt, _states,
-    _pass, _scan): four a call."""
+    products, gathers/scatters/scans/sorts (the MoE dispatch, and the
+    embedding lookup), the rest), the card's busy time and its idle share.
+    K4's launches on the card are its four kernels' (ssd_chunk_cbt,
+    _states, _pass, _scan): four a call."""
     spans = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
@@ -2354,6 +2444,8 @@ def prefill_breakdown(prof, secs: float) -> str:
         kind = ("K3" if "flash_fwd_kernel" in name
                 else "K4" if "ssd_chunk_" in name
                 else "matmul" if "gemm" in name or "cutlass" in name
+                else "gather/scatter/scan/sort" if any(
+                    w in name for w in DISPATCH_KERNELS)
                 else "other")
         n, us = kinds.get(kind, (0, 0.0))
         kinds[kind] = (n + 1, us + e.time_range.elapsed_us())
@@ -2370,22 +2462,115 @@ def prefill_breakdown(prof, secs: float) -> str:
             f" (idle {1 - busy_us / 1e6 / secs:.4f})")
 
 
-def run_prefill_phase(arch, cfg, model, rng, dev, card, n_k3, n_k4):
+def prefill_batch(cfg, rng, dev, L: int = PREFILL_L, B: int = PREFILL_B):
+    """Tokens (B, L) from ``rng``, then vlm's patches (B, n_patches, D) and
+    audio's frames (B, enc_frames, D), standard normal."""
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (B, L))).to(dev)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            (B, cfg.n_patches, cfg.d_model),
+            generator=torch.Generator(dev).manual_seed(1), device=dev)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            (B, cfg.enc_frames, cfg.d_model),
+            generator=torch.Generator(dev).manual_seed(2), device=dev)
+    return batch
+
+
+@contextlib.contextmanager
+def moe_drops(shares: list):
+    """Each MoE layer's dropped share of its (token, k) pairs, read from
+    ``moe_block``'s own capacity assignment, appended to ``shares`` as the
+    forward runs."""
+    from repro_torch.models import moe
+
+    def make(slots):
+        def wrapped(*a, **kw):
+            slot, keep = slots(*a, **kw)
+            shares.append(1.0 - float(keep.float().mean()))
+            return slot, keep
+        return wrapped
+    with patched(moe, "capacity_slots", make):
+        yield
+
+
+# The layer functions ``layer_io`` records: (function name in
+# models/transformer.py, kind).
+LAYER_FNS = (("_attn_mlp_layer", "dense"), ("_shared_attn_apply", "attn"),
+             ("_mamba_apply", "mamba"))
+# An attention sublayer's or a Mamba layer's output through the kernels
+# against the plain one on the same input, per token in relative L2: the
+# forward tolerance of tests/test_torch_models.py.
+LAYER_ROW_TOL = 2e-4
+
+
+@contextlib.contextmanager
+def held_layers(worst: dict):
+    """Teacher-forced: during a prefill through the kernels, every
+    attention sublayer (``layers.attention``: projections, RoPE, the K3
+    dispatch, the output projection) and every Mamba layer (K4) also runs
+    with the plain versions on the same input, and each token's outputs
+    (a Mamba layer's: its increments) are held to each other
+    (``row_rel``).  The rest of a layer (norms, MLP, MoE block) is the same
+    code in both.  Per kind, ``worst`` gathers the calls, the largest ratio
+    and the tokens over LAYER_ROW_TOL."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    def note(kind, r):
+        n, top, over = worst.get(kind, (0, 0.0, 0))
+        worst[kind] = (n + 1, max(top, float(r.max())),
+                       over + int((r > LAYER_ROW_TOL).sum()))
+
+    def attn(fn):
+        def wrapped(p, x, **kw):
+            out = fn(p, x, **kw)
+            with kernel_impl("plain"):
+                want = fn(p, x, **kw)[0]
+            note("attention", row_rel(out[0], want))
+            return out
+        return wrapped
+
+    def mamba(fn):
+        def wrapped(cfg, lp, x, *a, **kw):
+            out = fn(cfg, lp, x, *a, **kw)
+            with kernel_impl("plain"):
+                want = fn(cfg, lp, x, *a, **kw)[0]
+            note("mamba", row_rel(out[0] - x, want - x))
+            return out
+        return wrapped
+    with patched(layers, "attention", attn), patched(tf, "_mamba_apply",
+                                                     mamba):
+        yield
+
+
+def run_prefill_phase(arch, cfg, model, rng, dev, card, n_k3, n_k4,
+                      L: int = PREFILL_L, timed: bool = True):
     """A plain prefill in which every K3 and K4 call is checked against the
-    kernel on the same inputs; the kernels timed on the first calls' inputs;
-    then the main path, the kernel prefill, its launches counted and its
-    logits against the plain prefill's, beside the plain prefill's own
-    spread (the same prefill with K4 at Q = 128, equal in exact
-    arithmetic)."""
+    kernel on the same inputs; the kernels timed on the first calls' inputs
+    (``timed``); then the main path, the kernel prefill, its launches
+    counted and each attention sublayer and Mamba layer held to the plain
+    one on the same input (``held_layers``).  A model with K4 also
+    holds its kernel logits to the plain prefill's beside the plain
+    prefill's own spread (the same prefill with K4 at Q = 128, equal in
+    exact arithmetic).  ``L``: the tokens a sequence (a vlm's patches come
+    before them).  Returns the kernel records, the launches and the plain
+    prefill's logits."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ssd_chunk as k4
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
-                                           (PREFILL_B, PREFILL_L))).to(dev)
-    stats = {}
-    with kernel_impl("plain"), checked_calls(stats):
-        want, plain_s = prefill(model, cfg, tokens)
-    log(f"{arch} plain prefill (B = {PREFILL_B}, L = {PREFILL_L}), every "
-        f"kernel call checked: {plain_s:.3f} s")
+    batch = prefill_batch(cfg, rng, dev, L)
+    n_tok = PREFILL_B * (L + cfg.n_patches)
+    stats, drops = {}, []
+    with kernel_impl("plain"), checked_calls(stats), moe_drops(drops):
+        want, plain_s = prefill(model, cfg, batch)
+    log(f"{arch} plain prefill (B = {PREFILL_B}, L = {L}"
+        + (f" + {cfg.n_patches} patches" if cfg.n_patches else "")
+        + (f", {cfg.enc_frames} frames" if cfg.is_encdec else "")
+        + f"), every kernel call checked: {plain_s:.3f} s")
+    if drops:
+        log(f"{arch} MoE: dropped share of (token, k) pairs by layer "
+            f"(capacity factor 1.25): {[round(d, 5) for d in drops]}")
     records = {}
     for key in ("K3", "K4"):
         if key not in stats:
@@ -2395,124 +2580,154 @@ def run_prefill_phase(arch, cfg, model, rng, dev, card, n_k3, n_k4):
             f"|kernel - plain| {st['max_abs_diff']}, at most {st['share']} of "
             f"the limit ({FLOAT_TOL} of the error scale"
             + (f"; largest |sum of dt*A| over a chunk {st['lam']})"
-               if key == "K4" else ")"))
+               if key == "K4" else " plus the underflow term; the worst "
+               "element: kernel {}, plain {}, limit {})".format(
+                   *st["worst"])))
         check(st["share"] <= 1.0, f"{arch} {key}: every call of the prefill "
               "within its limit of the plain version")
-        timed = (time_k3(st["first"], card) if key == "K3"
+        if timed:
+            t = (time_k3(st["first"], arch, card) if key == "K3"
                  else time_k4(st["first"], arch, card))
-        records[key] = dict(timed, max_abs_diff=st["max_abs_diff"])
+            records[key] = dict(t, max_abs_diff=st["max_abs_diff"])
     check(stats.get("K3", {}).get("calls", 0) == n_k3
-          and stats["K4"]["calls"] == n_k4, f"{arch}: the plain prefill made "
-          f"{n_k3} K3 and {n_k4} K4 calls")
+          and stats.get("K4", {}).get("calls", 0) == n_k4,
+          f"{arch}: the plain prefill made {n_k3} K3 and {n_k4} K4 calls")
     del stats
-    with patched(k4, "ssd_chunked_plain",
-                 lambda plain: lambda *a, **kw: plain(*a, Q=128)), \
-            kernel_impl("plain"):
-        spread_logits, _ = prefill(model, cfg, tokens)
-    spread = rel_l2(spread_logits, want)
+    held = {}
     with kernel_impl("kernel"):
         k3.reset_launches()
         k4.reset_launches()
-        got, secs = prefill(model, cfg, tokens)
+        with held_layers(held):
+            got, _ = prefill(model, cfg, batch)
         launches = (k3.LAUNCHES["flash_attention"],
                     k4.LAUNCHES["ssd_chunked"])
-        _, warm = prefill(model, cfg, tokens)
+        _, secs = prefill(model, cfg, batch)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, traced = prefill(model, cfg, tokens)
+            _, traced = prefill(model, cfg, batch)
     log(f"{arch} prefill trace (a third prefill, traced, {traced:.3f} s): "
         + prefill_breakdown(prof, traced))
     dist = rel_l2(got, want)
     log(f"{arch} prefill: K3 launches {launches[0]}, K4 launches "
-        f"{launches[1]}; logits against the plain prefill: relative L2 "
-        f"{dist}, max |diff| {float((got - want).abs().max())}, argmax agree "
-        f"{float((got.argmax(-1) == want.argmax(-1)).float().mean())}; the "
-        f"plain prefill at Q = 128 against Q = 256: relative L2 {spread}; max "
-        f"|logit| {float(want.abs().max())}; {secs:.3f} s (first), "
-        f"{warm:.3f} s (second) a prefill, "
-        f"{PREFILL_B * PREFILL_L / warm:.1f} tokens/s [{card}]")
+        f"{launches[1]}; each attention sublayer and Mamba layer through the "
+        f"kernels against the plain one on the same input, per token, "
+        f"relative L2 (limit {LAYER_ROW_TOL}): "
+        + ", ".join(f"{k} {n} calls, at most {top}, {over} tokens over"
+                    for k, (n, top, over) in sorted(held.items()))
+        + f"; logits against the plain prefill: relative L2 {dist}, max "
+        f"|diff| {float((got - want).abs().max())}, max |logit| "
+        f"{float(want.abs().max())}; {secs:.3f} s a prefill (the second), "
+        f"{n_tok / secs:.1f} tokens/s [{card}]")
     check(launches == (n_k3, n_k4), f"{arch} prefill: {n_k3} K3 and {n_k4} "
           f"K4 launches, got {launches}")
     check(got.shape == (PREFILL_B, 1, cfg.vocab_padded)
           and bool(torch.isfinite(got).all()), f"{arch} prefill: finite "
           "logits of the expected shape")
-    check(dist <= 2 * spread + 1e-4, f"{arch} prefill: kernel logits no "
-          "farther from the plain prefill's than twice its own spread")
-    return records, launches
+    check(held and all(over == 0 for _, _, over in held.values()),
+          f"{arch} prefill: every attention sublayer's and Mamba layer's "
+          f"tokens through the kernels within {LAYER_ROW_TOL} of the plain "
+          "one's on the same input")
+    if n_k4:
+        with patched(k4, "ssd_chunked_plain",
+                     lambda plain: lambda *a, **kw: plain(*a, Q=128)), \
+                kernel_impl("plain"):
+            spread = rel_l2(prefill(model, cfg, batch)[0], want)
+        log(f"{arch} prefill: the plain prefill at Q = 128 against Q = 256: "
+            f"relative L2 {spread}")
+        check(dist <= 2 * spread + 1e-4, f"{arch} prefill: kernel logits no "
+              "farther from the plain prefill's than twice its own spread")
+    return records, launches, want
 
 
 @contextlib.contextmanager
 def layer_io(seen: list):
-    """Record each layer's input and output during a forward:
-    ("attn" | "mamba", layer module, x in, x out)."""
+    """Record each layer call of a forward or decode step: (kind, layer
+    module, x in, x out)."""
     from repro_torch.models import transformer as tf
 
-    def make(kind):
-        def mk(fn):
-            def wrapped(cfg, lp, x, *a, **kw):
-                out = fn(cfg, lp, x, *a, **kw)
-                seen.append((kind, lp, x.clone(), out[0].clone()))
-                return out
-            return wrapped
-        return mk
-    with patched(tf, "_shared_attn_apply", make("attn")), \
-            patched(tf, "_mamba_apply", make("mamba")):
+    def make(kind, fn):
+        def wrapped(cfg, lp, x, *a, **kw):
+            out = fn(cfg, lp, x, *a, **kw)
+            seen.append((kind, lp, x.clone(), out[0].clone()))
+            return out
+        return wrapped
+    with contextlib.ExitStack() as stack:
+        for name, kind in LAYER_FNS:
+            stack.enter_context(patched(
+                tf, name, lambda fn, kind=kind: make(kind, fn)))
         yield
 
 
-def run_decode_phase(arch, cfg, model, rng, dev, card):
-    """Decode against prefill at full width.  Layer by layer: the kernel
-    prefill of a DECODE_L-token prompt records every layer's input and
-    output; each layer then takes its input one token at a time through its
-    decode path (KV cache, conv and state caches), and its increments
-    (output minus input) are held to the prefill's within the reference's
-    decode tolerance.  End to end: the prompt through DECODE_L decode steps
-    of the whole model, its last logits against the prefill's."""
-    from repro_torch.models import model_api
+def plain_layer(cfg, kind, lp, x):
+    """The layer of ``kind`` over the whole sequence x (B, L, D), as a
+    prefill runs it, with the plain versions."""
     from repro_torch.models import transformer as tf
-    from repro_torch.models.ssm import mamba_dims
+    pos = torch.arange(x.shape[1], device=x.device)
+    with kernel_impl("plain"):
+        if kind == "dense":
+            return tf._attn_mlp_layer(cfg, lp, x, pos, lp.window,
+                                      kv_chunk=x.shape[1])[0]
+        if kind == "attn":
+            return tf._shared_attn_apply(cfg, lp, x, pos,
+                                         kv_chunk=x.shape[1])[0]
+        return tf._mamba_apply(cfg, lp, x)[0]
+
+
+def run_decode_phase(arch, cfg, model, rng, dev, card):
+    """Decode against prefill at full width, through ``model_api.
+    decode_step``: a DECODE_L-token prompt, one token a step, with every
+    layer call's input and output recorded.  Each layer's decode inputs,
+    stacked over the steps, then run through the same layer as a prefill
+    with the plain versions (causal: position t sees the inputs up to t,
+    as the caches held them), and the decode increments (output minus
+    input) are held to the prefill's, each token's within DECODE_RTOL in
+    relative L2; a hybrid's layers also elementwise within the reference's
+    decode tolerance (rtol DECODE_RTOL, atol DECODE_ATOL).  Then the same
+    steps without the hooks, timed, and their last logits against the
+    kernel prefill's."""
+    from repro_torch.models import model_api
     toks = torch.from_numpy(rng.integers(0, cfg.vocab,
                                          (PREFILL_B, DECODE_L))).to(dev)
     seen = []
+    cache = model_api.init_cache(cfg, PREFILL_B, DECODE_L,
+                                 dtype=torch.float32, device=dev)
     with kernel_impl("kernel"), layer_io(seen):
-        want, _ = prefill(model, cfg, toks)
-    _, H, conv_dim = mamba_dims(cfg.d_model, cfg.ssm_expand,
-                                cfg.ssm_head_dim, cfg.ssm_state)
-    worst = {"attn": 0.0, "mamba": 0.0}
-    bad = []
-    for i, (kind, lp, x, out) in enumerate(seen):
-        if kind == "attn":
-            shape = (PREFILL_B, DECODE_L, cfg.n_kv_heads, cfg.hd)
-            cache = {"k": torch.zeros(shape, device=dev),
-                     "v": torch.zeros(shape, device=dev)}
-        else:
-            cache = {"conv": torch.zeros((PREFILL_B, cfg.ssm_conv - 1,
-                                          conv_dim), device=dev),
-                     "state": torch.zeros((PREFILL_B, H, cfg.ssm_head_dim,
-                                           cfg.ssm_state), device=dev)}
-        steps = []
         for t in range(DECODE_L):
-            xt = x[:, t:t + 1]
-            if kind == "attn":
-                o, _ = tf._shared_attn_apply(
-                    cfg, lp, xt, torch.arange(t, t + 1, device=dev), cache,
-                    t, kv_chunk=DECODE_L)
-            else:
-                o, _ = tf._mamba_apply(cfg, lp, xt, cache)
-            steps.append(o)
-        inc_dec = torch.cat(steps, dim=1) - x
-        inc_pre = out - x
-        err = (inc_dec - inc_pre).abs()
-        share = float((err / (DECODE_ATOL + DECODE_RTOL * inc_pre.abs()))
-                      .max())
-        worst[kind] = max(worst[kind], share)
-        if share > 1.0:
-            bad.append((i, kind, float(err.max())))
-    log(f"{arch} decode vs prefill, layer by layer ({len(seen)} layers, "
-        f"{DECODE_L} tokens, B = {PREFILL_B}): increments within rtol "
-        f"{DECODE_RTOL}, atol {DECODE_ATOL}, at most {worst['attn']} of the "
-        f"limit (shared attention) and {worst['mamba']} (Mamba); over: "
-        f"{bad[:5]}")
+            model_api.decode_step(model, cfg, cache, toks[:, t:t + 1], t)
+    n = len(seen) // DECODE_L
+    worst, bad = {}, []
+    for i in range(n):
+        steps = seen[i::n]
+        kind, lp = steps[0][:2]
+        x = torch.cat([s[2] for s in steps], dim=1)
+        out = torch.cat([s[3] for s in steps], dim=1)
+        want = plain_layer(cfg, kind, lp, x)
+        rows = float(row_rel(out - x, want - x).max())
+        inc_pre = want - x
+        share = float(((out - want).abs()
+                       / (DECODE_ATOL + DECODE_RTOL * inc_pre.abs())).max())
+        w_rows, w_share = worst.get(kind, (0.0, 0.0))
+        worst[kind] = (max(w_rows, rows), max(w_share, share))
+        if rows > DECODE_RTOL or (cfg.family == "hybrid" and share > 1.0):
+            bad.append((i, kind, rows, share))
     del seen
+    names = {"attn": "shared attention", "mamba": "Mamba",
+             "dense": "attention + MLP"}
+    log(f"{arch} decode vs prefill, layer by layer ({n} layer calls a step, "
+        f"{DECODE_L} steps, B = {PREFILL_B}; decode_step's layer inputs "
+        f"through the plain layer as a prefill): per token, relative L2 of "
+        f"the increments at most "
+        + ", ".join(f"{v[0]} ({names[k]})" for k, v in sorted(worst.items()))
+        + f" (limit {DECODE_RTOL}); elementwise, of the limit rtol "
+        f"{DECODE_RTOL}, atol {DECODE_ATOL}: "
+        + ", ".join(f"{v[1]} ({names[k]})" for k, v in sorted(worst.items()))
+        + (" (held)" if cfg.family == "hybrid" else " (not held)")
+        + f"; over: {bad[:5]}")
+    check(not bad, f"{arch}: every layer's decode within {DECODE_RTOL} of "
+          "the plain prefill's layer on the same inputs, per token"
+          + (f" and elementwise within rtol {DECODE_RTOL}, atol "
+             f"{DECODE_ATOL}" if cfg.family == "hybrid" else ""))
+    with kernel_impl("kernel"):
+        want, _ = prefill(model, cfg, {"tokens": toks})
     cache = model_api.init_cache(cfg, PREFILL_B, DECODE_L,
                                  dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
@@ -2528,10 +2743,47 @@ def run_decode_phase(arch, cfg, model, rng, dev, card):
     log(f"{arch} decode vs prefill, end to end: last logits relative L2 "
         f"{dist}, cosine {cos}, max |diff| {float((logits - want).abs().max())}"
         f"; {secs * 1e3:.2f} ms a decode step (B = {PREFILL_B}) [{card}]")
-    check(not bad, f"{arch}: every layer's decode within rtol {DECODE_RTOL}, "
-          f"atol {DECODE_ATOL} of its prefill")
-    check(bool(torch.isfinite(logits).all()) and cos > 0.5,
-          f"{arch}: decode logits finite and aligned with the prefill's")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: decode logits finite")
+    if cfg.family == "hybrid":
+        check(cos > 0.5, f"{arch}: decode logits aligned with the prefill's")
+
+
+def run_e2e_phase(arch, cfg, model, rng, dev, card):
+    """End to end at a depth where float32 rounding stays small: the
+    kernel prefill's last logits (B = 2, L = PREFILL_L) within LOGIT_TOL of
+    the plain prefill's, and DECODE_L steps of ``model_api.decode_step``,
+    every step's logits within the reference's decode tolerance of the
+    plain prefill's logits at that position."""
+    from repro_torch.models import model_api
+    batch = prefill_batch(cfg, rng, dev)
+    with kernel_impl("plain"):
+        want, _ = prefill(model, cfg, batch)
+    with kernel_impl("kernel"):
+        got, _ = prefill(model, cfg, batch)
+    fwd = float((got - want).abs().max())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (PREFILL_B, DECODE_L))).to(dev)
+    with kernel_impl("plain"):
+        full, _ = model_api.forward(model, cfg, {"tokens": toks})
+    cache = model_api.init_cache(cfg, PREFILL_B, DECODE_L,
+                                 dtype=torch.float32, device=dev)
+    with kernel_impl("kernel"):
+        steps = torch.cat([model_api.decode_step(
+            model, cfg, cache, toks[:, t:t + 1], t)[0]
+            for t in range(DECODE_L)], dim=1)
+    dec = float(((steps - full).abs()
+                 / (DECODE_ATOL + DECODE_RTOL * full.abs())).max())
+    log(f"{arch} end to end: kernel prefill's last "
+        f"logits against the plain prefill's (B = {PREFILL_B}, L = "
+        f"{PREFILL_L}): max |diff| {fwd} (limit {LOGIT_TOL}), relative L2 "
+        f"{rel_l2(got, want)}, max |logit| {float(want.abs().max())}; "
+        f"{DECODE_L} decode steps against the plain prefill's logits: max "
+        f"|diff| {float((steps - full).abs().max())}, at most {dec} of the "
+        f"limit (rtol {DECODE_RTOL}, atol {DECODE_ATOL}) [{card}]")
+    check(fwd <= LOGIT_TOL, f"{arch}: kernel prefill within {LOGIT_TOL} of "
+          "the plain prefill")
+    check(dec <= 1.0, f"{arch}: every decode step's logits within the "
+          "reference's decode tolerance of the prefill's")
 
 
 def run_serve_phase(arch, cfg, model, rng, dev, card):
@@ -2567,7 +2819,7 @@ def run_model_phases(seed, rng, dev, card):
     records, launches = {}, {}
     cfg, model = make_model("zamba2-7b", seed, dev)
     n_super = cfg.n_layers // cfg.attn_every
-    recs, (launches["K3"], launches["K4"]) = run_prefill_phase(
+    recs, (launches["K3"], launches["K4"]), _ = run_prefill_phase(
         "zamba2-7b", cfg, model, rng, dev, card, n_super, cfg.n_layers)
     records.update(recs)
     run_decode_phase("zamba2-7b", cfg, model, rng, dev, card)
@@ -2580,6 +2832,54 @@ def run_model_phases(seed, rng, dev, card):
     run_serve_phase("mamba2-130m", cfg, model, rng, dev, card)
     del model
     torch.cuda.empty_cache()
+    return records, launches
+
+
+# The attention families (phase 12): (arch, depth (0: full), tokens a
+# sequence, what runs besides the prefill).  Depth is cut where float32
+# weights do not fit the card's 80 GB beside the prefill (gemma2-27b: 108
+# GB at 46 layers; llama4-scout: 431 GB at 48), to two local and two global
+# layers and to two layers.  Yi-9B runs again at one layer for the
+# end-to-end logits checks: from two layers on, float32 rounding alone (the
+# kernel's or another summation order's) moves its logits beyond their
+# tolerances, and at full depth by their own size.
+ATTENTION_MODELS = (("yi-9b", 0, PREFILL_L, ("decode", "serve")),
+                    ("yi-9b", 1, PREFILL_L, ("e2e",)),
+                    ("olmoe-1b-7b", 0, PREFILL_L, ("serve",)),
+                    ("gemma2-27b", 4, PREFILL_L, ()),
+                    ("internvl2-2b", 0, PREFILL_L, ()),
+                    ("whisper-medium", 0, 384, ()),
+                    ("llama4-scout-17b-a16e", 2, PREFILL_L, ()))
+
+
+def run_attention_phase(seed, rng, dev, card, models=ATTENTION_MODELS):
+    """Phase 12: each attention family's model at full width, its prefill
+    with every K3 call checked, its launches counted from 0 and its layers
+    held to the plain ones, Yi-9B's K3 timed; decode, serve and the
+    end-to-end checks where listed.  Returns the K3 records and each full
+    model's K3 launches."""
+    from repro_torch.models import transformer as tf
+    records, launches = {}, {}
+    for arch, depth, L, extra in models:
+        t0 = time.perf_counter()
+        cfg, model = make_model(arch, seed, dev, depth)
+        n_k3 = tf.layer_windows(cfg).count(0)
+        label = f"{arch} at depth {depth}" if "e2e" in extra else arch
+        recs, (k3_launches, _), _ = run_prefill_phase(
+            label, cfg, model, rng, dev, card, n_k3, 0, L=L,
+            timed=(arch, depth) == ("yi-9b", 0))
+        if "e2e" not in extra:
+            launches[arch] = k3_launches
+        records.update({f"{k} {arch}": r for k, r in recs.items()})
+        if "decode" in extra:
+            run_decode_phase(arch, cfg, model, rng, dev, card)
+        if "serve" in extra:
+            run_serve_phase(arch, cfg, model, rng, dev, card)
+        if "e2e" in extra:
+            run_e2e_phase(label, cfg, model, rng, dev, card)
+        del model              # before the next model is made
+        torch.cuda.empty_cache()
+        log(f"{label}: {time.perf_counter() - t0:.1f} s in all [{card}]")
     return records, launches
 
 
@@ -2633,8 +2933,9 @@ def main() -> int:
     try:
         adj, pr_op, ct, stores = phase("set-up", build_stores, args.scale,
                                        args.seed, tmp)
-        wide = phase("set-up wide", build_wide_stores, adj, tmp)
         cell = phase("set-up cell", build_cell, args.mxu_scale, args.seed,
+                     tmp)
+        wide = phase("set-up wide", build_wide_stores, adj, cell["adj"],
                      tmp)
         records = phase("kernels", run_kernel_phase, stores, ct, rng, dev)
         records.update(phase("densify kernels", run_mxu_phase, cell, rng,
@@ -2660,6 +2961,10 @@ def main() -> int:
                                               args.seed, rng, dev, card)
         records.update(model_records)
         launches.update(model_launches)
+        attn_records, attn_launches = phase(
+            "attention models", run_attention_phase, args.seed, rng, dev,
+            card)
+        records.update(attn_records)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2692,9 +2997,14 @@ def main() -> int:
         "K4": dict(name="ssd_chunked (K4)", source=src + "ssd_chunk.cu",
                    replaces="src/repro/kernels/ssd_chunk.py:73",
                    launches=launches["K4"]),
+        # K3 at the slice's model, Yi-9B (hd 128, G = 8), its own record
+        "K3 yi-9b": dict(name="flash_attention (K3), Yi-9B prefill",
+                         source=src + "flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:85",
+                         launches=attn_launches["yi-9b"]),
     }
     kernels = []
-    for key in ("K1a", "K1b", "K2", "K2 mxu", "K3", "K4"):
+    for key in ("K1a", "K1b", "K2", "K2 mxu", "K3", "K4", "K3 yi-9b"):
         r = records[key]
         kernels.append(dict(
             meta[key], route="cuda",
@@ -2710,6 +3020,8 @@ def main() -> int:
     kernels[0]["launches_overlay"] = overlay_launches
     kernels[0]["launches_serving"] = serving_launches
     kernels[0]["launches_net"] = net_launches
+    # K3's launches in each attention family's prefill (phase 12)
+    kernels[-1]["launches_by_model"] = attn_launches
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel ran on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

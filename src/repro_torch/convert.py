@@ -25,7 +25,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.formats import COO, ChunkedTiles
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import build_model
+from repro_torch.models.model_api import build_model
 
 
 def chunked_from_arrays(n_rows: int, n_cols: int, T: int, C: int,
@@ -65,10 +65,12 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
                     device: DeviceLike = None) -> nn.Module:
     """The port's model for ``cfg`` holding the values of the reference's
     parameter tree (nested dicts of numpy arrays with the reference's
-    stacked shapes), on ``device``.  The stacks (``layers``,
-    ``mamba_super`` (n_super, per, ...), ``mamba_tail``) are unstacked into
-    the model's ModuleLists.  Raises on a missing or extra key, or on a
-    shape that differs from the reference's definition."""
+    stacked shapes), on ``device``.  The layer stacks (``layers``,
+    ``mamba_super`` (n_super, per, ...), ``mamba_tail``, encdec's
+    ``encoder`` and ``decoder``) are unstacked into the model's
+    ModuleLists; a MoE layer's expert stacks (nl, E, ...) by layer only.
+    Raises on a missing or extra key, or on a shape that differs from the
+    reference's definition."""
     device = resolve_device(device)
 
     def to_torch(node):

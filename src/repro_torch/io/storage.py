@@ -1334,7 +1334,10 @@ class _OptimizedWriter:
             vv = np.zeros((1, C), np.float32)
         else:
             tcol = cols // T
-            order = np.lexsort((cols, rows, tcol))
+            # np.lexsort((cols, rows, tcol)) as one stable argsort of the
+            # combined key (tile column, local row, local column)
+            order = np.argsort((tcol * T + (rows - trow * T)) * T
+                               + (cols - tcol * T), kind="stable")
             rows, cols, tcol = rows[order], cols[order], tcol[order]
             v = None if vals is None else vals[order]
             tstarts = [0, *(np.flatnonzero(np.diff(tcol)) + 1).tolist(),

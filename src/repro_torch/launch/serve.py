@@ -6,7 +6,9 @@ each request's prompt is fed token by token through ``decode_step`` into
 its slot (prefill), then the wave steps together through greedy decoding.
 The batched prefill forward (``model_api.forward(...,
 logits_last_only=True)``) is not on this loop, as in the reference.  Decode
-runs eagerly.
+runs eagerly.  Every family is served through ``model_api``; an
+encoder-decoder model decodes against its zero-initialised cross cache, as
+in the reference (no frames frontend).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --requests 8 --prompt-len 32 --gen 16
@@ -131,6 +133,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).reduced()
+    if cfg.is_encdec:
+        print("[serve] enc-dec serving needs a frames frontend; the decoder "
+              "path is exercised via tests/dry-run")
     rng = np.random.default_rng(args.seed)
     server = BatchServer(cfg, slots=args.slots,
                          max_seq=args.prompt_len + args.gen + 1,

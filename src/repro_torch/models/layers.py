@@ -1,6 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE, attention (GQA, sliding
-window, softcap, KV cache) and the gated MLP, as the JAX package's
-``models/layers.py`` computes them.
+window, softcap, KV cache), the gated MLP and the GELU MLP, as the JAX
+package's ``models/layers.py`` computes them.
 
 Parameters are read by name (``p["wq"]``) from a mapping or a module of the
 port's models.  The JAX package's ``shard(...)`` and ``gather_fsdp(...)``
@@ -10,7 +10,10 @@ this one-device port omits them.
 Attention is the online-softmax (flash) form.  Under the JAX package's
 kernel conditions (``Lq == S``, no window, no partly filled cache,
 ``Lq % 128 == 0``) it goes to the flash-attention kernel (K3,
-``kernels/flash_attention.py``): on the card the CUDA kernel by default, or
+``kernels/flash_attention.py``), with the reference's block sizes cut to
+ones that divide the lengths (``gcd(L, 256)``: the reference's ``min(256,
+L)`` does not divide L = 384 or 640, where its Pallas toggle asserts and its
+default path runs): on the card the CUDA kernel by default, or
 its plain PyTorch version after ``set_flash_impl("plain")``, which only tests
 and the smoke's comparisons select.  One query token against a cache takes
 the direct form; every other case takes the plain chunk scan.
@@ -81,8 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = (k3.flash_attention if _FLASH_IMPL == "kernel"
               else k3.flash_attention_plain)
         return fn(q.contiguous(), k.contiguous(), v.contiguous(),
-                  causal=causal, softcap=softcap, Bq=min(256, Lq),
-                  Bk=min(256, S))
+                  causal=causal, softcap=softcap, Bq=math.gcd(Lq, 256),
+                  Bk=math.gcd(S, 256))
     if Lq == 1:
         # Decode: one query against the whole cache, read once in its own
         # dtype and summed in float32.
@@ -155,6 +158,12 @@ def attention(p, x: torch.Tensor, *, n_heads: int, n_kv: int, hd: int,
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
+    return (h.to(x.dtype) @ p["w_out"]).to(x.dtype)
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU MLP (``jax.nn.gelu``'s default)."""
+    h = F.gelu(x @ p["w_in"], approximate="tanh")
     return (h.to(x.dtype) @ p["w_out"]).to(x.dtype)
 
 

@@ -1,16 +1,20 @@
-"""Model API over the ported families (``ssm`` and ``hybrid``), one entry
-point per stage as in the JAX package's ``models/model_api.py``:
+"""Model API over every family (dense, moe, vlm, audio encoder-decoder,
+ssm, hybrid), one entry point per serving stage as in the JAX package's
+``models/model_api.py``:
 
-* :func:`pdefs` / :func:`init_params` / :func:`n_params` — the parameter
-  tree (declarative ``PDef``) and the model holding it;
-* :func:`forward` — full-sequence forward (prefill);
+* :func:`pdefs` / :func:`init_params` / :func:`build_model` /
+  :func:`n_params` / :func:`n_active_params` — the parameter tree
+  (declarative ``PDef``) and the model holding it;
+* :func:`forward` — full-sequence forward (prefill), with the modality
+  stubs' ``patches`` (vlm) and ``frames`` (audio);
   ``logits_last_only=True`` is the serving prefill;
 * :func:`cache_shapes` / :func:`init_cache` — the decode state;
 * :func:`decode_step` — one token against the cache (updated in place);
 * :func:`make_batch` — a random batch of one shape cell.
 
 Every entry point that makes tensors runs on the card unless the caller
-passes ``device="cpu"``.  The other families raise ``NotImplementedError``.
+passes ``device="cpu"``.  The training entry points (``loss_fn``,
+``param_shapes``, ``batch_shapes``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.params import materialize
 from repro_torch.models.params import n_params as _n_params
@@ -41,7 +46,17 @@ class TensorSpec:
 # Parameters
 # ---------------------------------------------------------------------------
 def pdefs(cfg: ArchConfig) -> dict:
+    if cfg.is_encdec:
+        return ed.encdec_pdefs(cfg)
     return tf.decoder_pdefs(cfg)
+
+
+def build_model(cfg: ArchConfig, tree: dict) -> nn.Module:
+    """The model of ``cfg`` holding ``tree`` (a tree of tensors with the
+    shapes of :func:`pdefs`)."""
+    if cfg.is_encdec:
+        return ed.build_model(cfg, tree)
+    return tf.build_model(cfg, tree)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -49,12 +64,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> nn.Module:
     """The model with parameters made from ``generator`` (see
     :func:`~repro_torch.models.params.materialize`) on ``device``."""
-    model = tf.build_model(cfg, materialize(pdefs(cfg), generator, device))
+    model = build_model(cfg, materialize(pdefs(cfg), generator, device))
     return model if dtype == torch.float32 else model.to(dtype)
 
 
 def n_params(cfg: ArchConfig) -> int:
     return _n_params(pdefs(cfg))
+
+
+def n_active_params(cfg: ArchConfig) -> int:
+    """Parameters touched per token (MoE: top_k of n_experts)."""
+    total = n_params(cfg)
+    if cfg.family != "moe" or cfg.n_experts == 0:
+        return total
+    expert = 3 * cfg.d_model * cfg.moe_d_ff * cfg.n_layers  # gate+in+out
+    return total - expert * cfg.n_experts + expert * cfg.top_k
 
 
 # ---------------------------------------------------------------------------
@@ -64,17 +88,29 @@ def forward(params: nn.Module, cfg: ArchConfig,
             batch: Dict[str, torch.Tensor], *, remat: bool = True,
             logits_last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, L, V) float32, aux_loss scalar).
+    """Returns (logits (B, L, V) float32, aux_loss scalar).  For vlm the
+    logits cover only the text positions (the patch prefix stripped).
     ``logits_last_only`` (serving prefill) slices the hidden state to the
     final position before the unembedding.  ``remat`` is accepted and has
     no effect without gradients."""
+    if cfg.is_encdec:
+        return ed.encdec_forward(params, cfg, batch["tokens"],
+                                 batch["frames"], remat=remat,
+                                 last_only=logits_last_only)
     if cfg.family == "ssm":
         return tf.ssm_forward(params, cfg, batch["tokens"], remat=remat,
                               last_only=logits_last_only)
     if cfg.family == "hybrid":
         return tf.hybrid_forward(params, cfg, batch["tokens"], remat=remat,
                                  last_only=logits_last_only)
-    raise tf._unported(cfg)
+    patches = batch.get("patches")
+    logits, aux = tf.dense_forward(params, cfg, batch["tokens"],
+                                   patches=patches, remat=remat,
+                                   last_only=logits_last_only)
+    if (cfg.family == "vlm" and patches is not None
+            and not logits_last_only):
+        logits = logits[:, patches.shape[1]:]
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -84,9 +120,16 @@ def cache_shapes(cfg: ArchConfig, B: int, S: int,
                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """The decode-state tree as :class:`TensorSpec`s (SSM states are always
     float32)."""
-    if cfg.family not in tf.FAMILIES:
-        raise tf._unported(cfg)
     nl, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    if cfg.is_encdec:
+        F = cfg.enc_frames
+        return {"self_k": TensorSpec((nl, B, S, KV, hd), dtype),
+                "self_v": TensorSpec((nl, B, S, KV, hd), dtype),
+                "cross_k": TensorSpec((nl, B, F, KV, hd), dtype),
+                "cross_v": TensorSpec((nl, B, F, KV, hd), dtype)}
+    if cfg.family not in ("ssm", "hybrid"):
+        return {"k": TensorSpec((nl, B, S, KV, hd), dtype),
+                "v": TensorSpec((nl, B, S, KV, hd), dtype)}
     d_inner, H, conv_dim = mamba_dims(cfg.d_model, cfg.ssm_expand,
                                       cfg.ssm_head_dim, cfg.ssm_state)
     conv = (B, cfg.ssm_conv - 1, conv_dim)
@@ -122,11 +165,13 @@ def decode_step(params: nn.Module, cfg: ArchConfig, cache: dict,
                 tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, dict]:
     """One serve step: tokens (B, 1), pos an int (shared by the batch) ->
     (logits (B, 1, V), the cache, updated in place)."""
+    if cfg.is_encdec:
+        return ed.encdec_decode_step(params, cfg, cache, tokens, pos)
     if cfg.family == "ssm":
         return tf.ssm_decode_step(params, cfg, cache, tokens, pos)
     if cfg.family == "hybrid":
         return tf.hybrid_decode_step(params, cfg, cache, tokens, pos)
-    raise tf._unported(cfg)
+    return tf.dense_decode_step(params, cfg, cache, tokens, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -134,22 +179,30 @@ def decode_step(params: nn.Module, cfg: ArchConfig, cache: dict,
 # ---------------------------------------------------------------------------
 def make_batch(cfg: ArchConfig, cell: ShapeCell, rng: np.random.Generator,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """A random batch of one cell, drawn with numpy: kind "train" gives
-    tokens and labels (B, L), "prefill" tokens (B, L), "decode" tokens
-    (B, 1) and pos."""
-    if cfg.family not in tf.FAMILIES:
-        raise tf._unported(cfg)
+    """A random batch of one cell, drawn with numpy in the JAX package's
+    key order (its ``batch_shapes``), so that one seed gives both packages
+    the same batch: kind "decode" gives tokens (B, 1) and pos (0); "train"
+    tokens and labels (B, L); "prefill" tokens; then vlm's ``patches``
+    (B, n_patches, D) and audio's ``frames`` (B, enc_frames, D), standard
+    normal float32."""
     device = resolve_device(device)
     B, L = cell.global_batch, cell.seq_len
 
-    def tok(shape):
-        return torch.from_numpy(rng.integers(0, cfg.vocab, size=shape,
-                                             dtype=np.int64)).to(device)
+    def ints(shape, hi):
+        return torch.from_numpy(np.asarray(rng.integers(
+            0, hi, size=shape, dtype=np.int64))).to(device)
+
+    def normal(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
 
     if cell.kind == "decode":
-        return {"tokens": tok((B, 1)),
-                "pos": torch.zeros((), dtype=torch.int64, device=device)}
-    out = {"tokens": tok((B, L))}
+        return {"tokens": ints((B, 1), cfg.vocab), "pos": ints((), 1)}
+    out = {"tokens": ints((B, L), cfg.vocab)}
     if cell.kind == "train":
-        out["labels"] = tok((B, L))
+        out["labels"] = ints((B, L), cfg.vocab)
+    if cfg.family == "vlm":
+        out["patches"] = normal((B, cfg.n_patches, cfg.d_model))
+    if cfg.is_encdec:
+        out["frames"] = normal((B, cfg.enc_frames, cfg.d_model))
     return out

@@ -38,6 +38,29 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
         yield from leaves(tree[k], path + (k,))
 
 
+def check_tree(arch_id: str, want, got) -> None:
+    """Raise on a key of the PDef tree ``want`` missing from the tensor
+    tree ``got``, a key too many, or a shape that differs."""
+    want, got = dict(leaves(want)), dict(leaves(got))
+    if set(got) != set(want):
+        missing = sorted(".".join(k) for k in set(want) - set(got))
+        extra = sorted(".".join(k) for k in set(got) - set(want))
+        raise KeyError(f"parameter tree of {arch_id}: missing {missing}, "
+                       f"extra {extra}")
+    for path, d in want.items():
+        if tuple(got[path].shape) != tuple(d.shape):
+            raise ValueError(f"{'.'.join(path)}: shape "
+                             f"{tuple(got[path].shape)}, expected {d.shape}")
+
+
+def layer(tree, *index):
+    """The tree of one stacked layer: every leaf indexed by ``index`` on
+    its leading axes (views, not copies)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, *index) for k, v in tree.items()}
+    return tree[index]
+
+
 def n_params(tree) -> int:
     return int(sum(math.prod(d.shape) for _, d in leaves(tree)))
 

@@ -1,35 +1,38 @@
-"""Decoder-only model families of this slice: pure SSM (Mamba-2) and the
-Zamba-style hybrid, as the JAX package's ``models/transformer.py`` defines
-them.
+"""Decoder-only model families: dense, MoE, VLM (stub frontend), pure SSM
+(Mamba-2) and the Zamba-style hybrid, as the JAX package's
+``models/transformer.py`` defines them.
 
 Parameters are declared with the JAX package's tree (:func:`decoder_pdefs`,
 stacked per layer) and held in ``nn.Module``s: each layer is a module of
 its own and the stacks are ``nn.ModuleList``s, walked by Python loops where
-the JAX package scans (:func:`build_model` unstacks a tree).  Parameters do
-not require gradients: training is not ported yet.  The dense, moe, vlm and
-audio families raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+the JAX package scans (:func:`build_model` unstacks a tree; a MoE layer's
+expert stacks (E, ...) stay whole).  Parameters do not require gradients:
+training is not ported yet.  The encoder-decoder family is
+``models/encdec.py``.
+
+Window dispatch.  The JAX package scans the dense stack over
+:func:`layer_windows`' array, so every dense, MoE and VLM layer sees a
+traced window and takes its jnp attention path, never its Pallas kernel.
+Here the windows are Python ints: a layer of window 0 (every layer but
+gemma2's local ones) meets the kernel's conditions and, at ``L % 128 ==
+0``, goes to flash attention (K3); gemma2's local layers take the plain
+chunk scan, as in the JAX package.  Both compute the same function.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as ll
-from repro_torch.models.params import PDef, leaves
+from repro_torch.models.moe import moe_block
+from repro_torch.models.params import PDef, check_tree, layer
 from repro_torch.models.ssm import mamba_block, mamba_dims
 
-FAMILIES = ("ssm", "hybrid")
-
-
-def _unported(cfg: ArchConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {cfg.family!r} family ({cfg.arch_id}) is not ported yet; "
-        "this port runs the 'ssm' and 'hybrid' families (ROADMAP.md, "
-        "queue 1)")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +58,16 @@ def _mlp_pdefs(cfg: ArchConfig, nl: int, d_ff: int) -> dict:
     }
 
 
+def _moe_pdefs(cfg: ArchConfig, nl: int) -> dict:
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "router": PDef((nl, D, E), "p_router", stacked=1),
+        "w_gate": PDef((nl, E, D, F), "p_expert_in", stacked=2),
+        "w_in": PDef((nl, E, D, F), "p_expert_in", stacked=2),
+        "w_out": PDef((nl, E, F, D), "p_expert_out", stacked=2),
+    }
+
+
 def _mamba_pdefs(cfg: ArchConfig, stack: Tuple[int, ...]) -> dict:
     D = cfg.d_model
     d_inner, H, conv_dim = mamba_dims(D, cfg.ssm_expand, cfg.ssm_head_dim,
@@ -74,17 +87,34 @@ def _mamba_pdefs(cfg: ArchConfig, stack: Tuple[int, ...]) -> dict:
 
 
 def decoder_pdefs(cfg: ArchConfig) -> dict:
-    """The JAX package's parameter tree for the ssm and hybrid families."""
+    """The JAX package's parameter tree of a decoder-only family."""
     if cfg.family not in FAMILIES:
-        raise _unported(cfg)
+        raise ValueError(f"{cfg.arch_id}: the {cfg.family!r} family is not "
+                         f"decoder-only (models/encdec.py)")
     D, V, nl = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     p: dict = {
         "embed": PDef((V, D), "p_embed", scale=0.02),
         "unembed": PDef((V, D), "p_embed", scale=1.0 / math.sqrt(D)),
         "final_norm": PDef((D,), "p_norm", init="zeros"),
     }
+    if cfg.family == "vlm":
+        p["patch_proj"] = PDef((D, D), None)  # stub-frontend adapter
     if cfg.family == "ssm":
         p["layers"] = _mamba_pdefs(cfg, (nl,))
+        return p
+    if cfg.family in ("dense", "moe", "vlm"):
+        lay = {
+            "ln1": PDef((nl, D), "p_norm", init="zeros", stacked=1),
+            "ln2": PDef((nl, D), "p_norm", init="zeros", stacked=1),
+            "attn": _attn_pdefs(cfg, nl),
+        }
+        if cfg.family == "moe":
+            lay["moe"] = _moe_pdefs(cfg, nl)
+            if cfg.shared_expert_d_ff:
+                lay["mlp"] = _mlp_pdefs(cfg, nl, cfg.shared_expert_d_ff)
+        else:
+            lay["mlp"] = _mlp_pdefs(cfg, nl, cfg.d_ff)
+        p["layers"] = lay
         return p
     n_super = nl // cfg.attn_every
     per = cfg.attn_every
@@ -101,6 +131,14 @@ def decoder_pdefs(cfg: ArchConfig) -> dict:
     if tail:
         p["mamba_tail"] = _mamba_pdefs(cfg, (tail,))
     return p
+
+
+def layer_windows(cfg: ArchConfig) -> List[int]:
+    """Per-layer window sizes (0 = global): gemma2 alternates local
+    (``window``) and global layers."""
+    if cfg.alternate_local_global:
+        return [cfg.window if i % 2 == 0 else 0 for i in range(cfg.n_layers)]
+    return [cfg.window] * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -147,9 +185,24 @@ class SharedAttentionBlock(Params):
                                   cache_pos, kv_chunk)
 
 
-class Mamba2LM(nn.Module):
-    """The ``ssm`` family: embedding, Mamba-2 layers, final norm,
-    unembedding."""
+class DenseLayer(Params):
+    """One pre-norm attention + MLP (or MoE) layer with its residuals
+    (``_attn_mlp_layer``)."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict, window: int):
+        super().__init__(tensors)
+        self.cfg = cfg
+        self.window = window
+
+    def forward(self, x, positions, cache=None, cache_pos=None,
+                kv_chunk: int = 1024):
+        return _attn_mlp_layer(self.cfg, self, x, positions, self.window,
+                               cache, cache_pos, kv_chunk)
+
+
+class LMHead(nn.Module):
+    """Embedding, final norm and unembedding, the parameters every family
+    has outside its layers."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
@@ -157,37 +210,57 @@ class Mamba2LM(nn.Module):
         for k in ("embed", "unembed", "final_norm"):
             self.register_parameter(k, nn.Parameter(tree[k],
                                                     requires_grad=False))
-        lay = tree["layers"]
+
+
+class DenseLM(LMHead):
+    """The dense, moe and vlm families: embedding (after vlm's projected
+    patch prefix), attention + MLP/MoE layers, final norm, unembedding."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__(cfg, tree)
+        if cfg.family == "vlm":
+            self.patch_proj = nn.Parameter(tree["patch_proj"],
+                                           requires_grad=False)
         self.layers = nn.ModuleList(
-            Mamba2Layer(cfg, {k: v[i] for k, v in lay.items()})
+            DenseLayer(cfg, layer(tree["layers"], i), w)
+            for i, w in enumerate(layer_windows(cfg)))
+
+    def forward(self, tokens, patches=None, last_only: bool = False):
+        return dense_forward(self, self.cfg, tokens, patches=patches,
+                             last_only=last_only)
+
+
+class Mamba2LM(LMHead):
+    """The ``ssm`` family: embedding, Mamba-2 layers, final norm,
+    unembedding."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__(cfg, tree)
+        self.layers = nn.ModuleList(
+            Mamba2Layer(cfg, layer(tree["layers"], i))
             for i in range(cfg.n_layers))
 
     def forward(self, tokens, last_only: bool = False):
         return ssm_forward(self, self.cfg, tokens, last_only=last_only)
 
 
-class Zamba2LM(nn.Module):
+class Zamba2LM(LMHead):
     """The ``hybrid`` family: the shared attention block before every
     ``attn_every`` Mamba-2 layers, then a tail of Mamba-2 layers."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        super().__init__()
-        self.cfg = cfg
-        for k in ("embed", "unembed", "final_norm"):
-            self.register_parameter(k, nn.Parameter(tree[k],
-                                                    requires_grad=False))
+        super().__init__(cfg, tree)
         self.shared_attn = SharedAttentionBlock(cfg, tree["shared_attn"])
         sup = tree["mamba_super"]
         n_super = cfg.n_layers // cfg.attn_every
         self.mamba_super = nn.ModuleList(
-            nn.ModuleList(Mamba2Layer(cfg, {k: v[s, j] for k, v in sup.items()})
+            nn.ModuleList(Mamba2Layer(cfg, layer(sup, s, j))
                           for j in range(cfg.attn_every))
             for s in range(n_super))
         tail = tree.get("mamba_tail", {})
         n_tail = cfg.n_layers - n_super * cfg.attn_every
         self.mamba_tail = nn.ModuleList(
-            Mamba2Layer(cfg, {k: v[i] for k, v in tail.items()})
-            for i in range(n_tail))
+            Mamba2Layer(cfg, layer(tail, i)) for i in range(n_tail))
 
     def forward(self, tokens, last_only: bool = False):
         return hybrid_forward(self, self.cfg, tokens, last_only=last_only)
@@ -198,27 +271,89 @@ def build_model(cfg: ArchConfig, tree: dict) -> nn.Module:
     tensors), its stacked layers unstacked into ModuleLists as views.
     Raises on a missing or extra key or a shape that differs from
     :func:`decoder_pdefs`."""
-    want = dict(leaves(decoder_pdefs(cfg)))
-    got = dict(leaves(tree))
-    if set(got) != set(want):
-        missing = sorted(".".join(k) for k in set(want) - set(got))
-        extra = sorted(".".join(k) for k in set(got) - set(want))
-        raise KeyError(f"parameter tree of {cfg.arch_id}: missing {missing},"
-                       f" extra {extra}")
-    for path, d in want.items():
-        if tuple(got[path].shape) != tuple(d.shape):
-            raise ValueError(f"{'.'.join(path)}: shape "
-                             f"{tuple(got[path].shape)}, expected {d.shape}")
-    return (Mamba2LM if cfg.family == "ssm" else Zamba2LM)(cfg, tree)
+    check_tree(cfg.arch_id, decoder_pdefs(cfg), tree)
+    if cfg.family == "ssm":
+        return Mamba2LM(cfg, tree)
+    if cfg.family == "hybrid":
+        return Zamba2LM(cfg, tree)
+    return DenseLM(cfg, tree)
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
-def _zero():
-    return torch.zeros((), dtype=torch.float32)
+def _zero(device=None):
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
+# -- dense / moe / vlm ----------------------------------------------------
+def _attn_mlp_layer(cfg: ArchConfig, lp, x, positions, window: int,
+                    cache=None, cache_pos=None, kv_chunk: int = 1024):
+    """Returns (x out, the layer's MoE aux loss or 0, the cache)."""
+    h = ll.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    y, new_cache = ll.attention(
+        lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+        cache_pos=cache_pos, window=window, softcap=cfg.attn_softcap,
+        kv_chunk=kv_chunk)
+    x = x + y
+    h = ll.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    aux = _zero(x.device)
+    if cfg.family == "moe":
+        y, aux = moe_block(lp["moe"], h, n_experts=cfg.n_experts,
+                           top_k=cfg.top_k)
+        if cfg.shared_expert_d_ff:
+            y = y + ll.swiglu(lp["mlp"], h)
+    else:
+        y = ll.swiglu(lp["mlp"], h)
+    return x + y, aux, new_cache
+
+
+def dense_forward(model: DenseLM, cfg: ArchConfig, tokens: torch.Tensor, *,
+                  patches: Optional[torch.Tensor] = None, remat: bool = True,
+                  last_only: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward for dense / moe / vlm (vlm: the projected
+    ``patches`` (B, P, D) before the tokens).  Returns (logits, the mean of
+    the layers' aux losses); ``remat`` has no effect without gradients."""
+    x = ll.embed(model.embed, tokens)
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError(f"{cfg.arch_id}: the vlm forward needs patches")
+        pe = patches @ model.patch_proj
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+    L = x.shape[1]
+    positions = torch.arange(L, device=x.device)
+    kv_chunk = 1024 if L >= 1024 else L
+    auxs = []
+    for lp in model.layers:
+        x, aux, _ = _attn_mlp_layer(cfg, lp, x, positions, lp.window,
+                                    kv_chunk=kv_chunk)
+        auxs.append(aux)
+    x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    logits = ll.unembed(model.unembed, x, cfg.logit_softcap)
+    return logits, torch.stack(auxs).mean()
+
+
+def dense_decode_step(model: DenseLM, cfg: ArchConfig, cache: dict,
+                      tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  cache {"k", "v"}: (nl, B, S, KV, hd), updated in
+    place and returned; tokens (B, 1); pos an int shared by the batch."""
+    x = ll.embed(model.embed, tokens)
+    pos = int(pos)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    for i, lp in enumerate(model.layers):
+        ck, cv = cache["k"][i], cache["v"][i]
+        x, _, _ = _attn_mlp_layer(cfg, lp, x, positions, lp.window,
+                                  cache={"k": ck, "v": cv}, cache_pos=pos,
+                                  kv_chunk=min(2048, ck.shape[1]))
+    x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return ll.unembed(model.unembed, x, cfg.logit_softcap), cache
+
+
+# -- pure SSM -------------------------------------------------------------
 def ssm_forward(model: Mamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
                 remat: bool = True, last_only: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

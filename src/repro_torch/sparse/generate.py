@@ -19,18 +19,31 @@ def rmat(scale: int, edge_factor: int, *, a: float = 0.57, b: float = 0.19,
     n = 1 << scale
     n_edges = edge_factor * n
     rng = np.random.default_rng(seed)
-    rows = np.zeros(n_edges, dtype=np.int64)
-    cols = np.zeros(n_edges, dtype=np.int64)
+    # ids are built in place in the narrowest type that holds them
+    idx = np.int32 if scale < 31 else np.int64
+    rows = np.zeros(n_edges, dtype=idx)
+    cols = np.zeros(n_edges, dtype=idx)
+    u = np.empty(n_edges)
+    rbit, cbit, low = (np.empty(n_edges, dtype=bool) for _ in range(3))
     # Per-bit quadrant draw, vectorized over all edges at once.
     p_row1 = (c + (1.0 - a - b - c))  # P(row bit = 1) = c + d
+    # P(col bit = 1 | row bit) : row0 -> b/(a+b), row1 -> d/(c+d)
+    p_col1 = (b / (a + b), (1.0 - a - b - c) / (c + (1.0 - a - b - c)))
     for _ in range(scale):
-        rbit = rng.random(n_edges) < p_row1
-        # P(col bit = 1 | row bit) : row0 -> b/(a+b), row1 -> d/(c+d)
-        p_col1 = np.where(rbit, (1.0 - a - b - c) / (c + (1.0 - a - b - c)),
-                          b / (a + b))
-        cbit = rng.random(n_edges) < p_col1
-        rows = (rows << 1) | rbit
-        cols = (cols << 1) | cbit
+        rng.random(out=u)
+        np.less(u, p_row1, out=rbit)
+        rng.random(out=u)
+        # cbit = u < p_col1[rbit], as two comparisons against scalars
+        np.less(u, p_col1[1], out=cbit)
+        np.logical_and(cbit, rbit, out=cbit)
+        np.less(u, p_col1[0], out=low)
+        np.logical_and(low, ~rbit, out=low)
+        np.logical_or(cbit, low, out=cbit)
+        np.left_shift(rows, 1, out=rows)
+        np.bitwise_or(rows, rbit, out=rows)
+        np.left_shift(cols, 1, out=cols)
+        np.bitwise_or(cols, cbit, out=cols)
+    rows, cols = rows.astype(np.int64), cols.astype(np.int64)
     if undirected:
         rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
     return COO(n, n, rows, cols, None).dedup()

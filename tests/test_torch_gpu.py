@@ -3,7 +3,8 @@ gather kernel (K1a, and K2 through it), the densify kernel (K1b, and
 K2-mxu through it), flash attention (K3) and the SSD chunk scan (K4); and
 the engine's plain steps on the card (the ring step, the delta overlay's
 scatter and fold, the sharded scan's threads), the serving runtime and
-the cross-host tier's hosts against the CPU engine.
+the cross-host tier's hosts against the CPU engine; the reduced models of
+every family through the kernels against the CPU.
 
 Small shapes; every test needs a card and skips without one (decided in the
 ``cuda`` fixture, never at import).  Run on a machine with a card:
@@ -34,6 +35,7 @@ from repro_torch.kernels import ssd_chunk as k4
 from repro_torch.kernels.ops import spmm_kernel
 from repro_torch.models import model_api
 from repro_torch.sparse.generate import rmat
+from ulp import one_ulp
 
 pytestmark = pytest.mark.gpu
 
@@ -724,6 +726,8 @@ def _randn(gen, shape, cuda, dtype=torch.float32):
     (2, 128, 4, 2, 16, True, 0.0, 0),       # reduced Zamba2-7B, G = 2
     (1, 256, 2, 2, 64, False, 30.0, 0),
     (2, 2048, 32, 32, 112, True, 0.0, 0),   # Zamba2-7B's prefill
+    (2, 2048, 32, 4, 128, True, 0.0, 0),    # Yi-9B's prefill, G = 8
+    (2, 2048, 32, 16, 128, True, 50.0, 0),  # Gemma2-27B's global layers
     # hd padded to the next multiple of 8 (none, or up to 7 columns)
     (1, 256, 2, 2, 8, True, 0.0, 0),
     (1, 256, 2, 2, 48, True, 0.0, 0),
@@ -855,25 +859,126 @@ def test_ssd_kernel_repeats_bit_for_bit(cuda):
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
+def test_flash_dispatch_at_odd_128_blocks(cuda):
+    """L = 384 through the models' attention: one launch, with blocks that
+    divide L (gcd(L, 256) = 128), against the plain version."""
+    from repro_torch.models import layers
+    gen = torch.Generator(cuda).manual_seed(384)
+    q = _randn(gen, (2, 384, 8, 64), cuda)
+    k, v = (_randn(gen, (2, 384, 2, 64), cuda) for _ in range(2))
+    kw = dict(q_positions=torch.arange(384, device=cuda), s_valid=384)
+    before = k3.LAUNCHES["flash_attention"]
+    got = layers.flash_attention(q, k, v, **kw)
+    assert k3.LAUNCHES["flash_attention"] - before == 1
+    prev = layers.set_flash_impl("plain")
+    try:
+        want = layers.flash_attention(q, k, v, **kw)
+    finally:
+        layers.set_flash_impl(prev)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _reduced_batch(cfg, L, seed=1):
+    """Tokens (B = 2) so that the attention's length is L (a vlm's patch
+    prefix included), with vlm's patches and audio's frames."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, L - cfg.n_patches)))}
+    if cfg.family == "vlm":
+        out["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    if cfg.is_encdec:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _one_ulp(model, seed):
+    """A copy of ``model`` with its parameters moved by ``ulp.one_ulp``."""
+    moved = copy.deepcopy(model)
+    params = dict(moved.named_parameters())
+    with torch.no_grad():
+        for name, a in one_ulp({k: p.numpy() for k, p in params.items()},
+                               seed).items():
+            params[name].copy_(torch.from_numpy(a))
+    return moved
+
+
 @pytest.mark.parametrize("arch,k3_calls,k4_calls", [
-    ("zamba2-7b", 2, 13), ("mamba2-130m", 0, 4)])
+    ("zamba2-7b", 2, 13), ("mamba2-130m", 0, 4), ("yi-9b", 4, 0),
+    ("gemma2-27b", 2, 0), ("olmoe-1b-7b", 4, 0), ("internvl2-2b", 4, 0),
+    ("whisper-medium", 4, 0)])
 def test_reduced_model_on_card_matches_cpu(cuda, arch, k3_calls, k4_calls):
-    """The reduced models' forward (B = 2, L = 128) on the card through the
-    kernels against the same weights on the CPU (the plain versions), at
-    the forward tolerance of tests/test_torch_models.py (2e-4)."""
+    """The reduced models' forward (B = 2, L = 128 with a vlm's patches) on
+    the card through the kernels against the same weights on the CPU (the
+    plain versions), at the forward tolerance of tests/test_torch_models.py
+    (2e-4); the attention families' beyond twice the CPU forward's own
+    spread under one-ulp moves of its weights (tests/test_torch_dense.py:
+    their reduced stacks amplify rounding; the hybrid and SSM ones are held
+    at 2e-4 alone); then each layer on the card, teacher-forced with the
+    CPU forward's input to it, at 2e-4 alone (``_check_layers_on_card``)."""
     cfg = get_config(arch).reduced()
     cpu = model_api.init_params(cfg, torch.Generator().manual_seed(0),
                                 "cpu")
     card = copy.deepcopy(cpu).to(cuda)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 128)))
+    batch = _reduced_batch(cfg, 128)
     k3.reset_launches()
     k4.reset_launches()
-    got, _ = model_api.forward(card, cfg, {"tokens": toks.to(cuda)})
+    got, _ = model_api.forward(card, cfg, {k: v.to(cuda)
+                                           for k, v in batch.items()})
     assert k3.LAUNCHES["flash_attention"] == k3_calls
     assert k4.LAUNCHES["ssd_chunked"] == k4_calls
-    want, _ = model_api.forward(cpu, cfg, {"tokens": toks})
-    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    want, _ = model_api.forward(cpu, cfg, batch)
+    spread = 0.0 if cfg.family in ("ssm", "hybrid") else max(
+        float((model_api.forward(_one_ulp(cpu, s), cfg, batch)[0]
+               - want).abs().max()) for s in range(4))
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4,
+                               atol=2e-4 + 2 * spread)
+    _check_layers_on_card(cfg, cpu, card, batch, cuda)
+
+
+# The layer functions of the reduced models, by module.
+_LAYER_FNS = (("transformer", "_attn_mlp_layer"),
+              ("transformer", "_shared_attn_apply"),
+              ("transformer", "_mamba_apply"),
+              ("encdec", "_encoder_layer"), ("encdec", "_decoder_layer"))
+
+
+def _check_layers_on_card(cfg, cpu, card, batch, cuda):
+    """Teacher-forced, layer by layer: every layer call of the CPU forward
+    is repeated on the card, on the same input and with the card's copy of
+    the layer, through the kernels, and held within 2e-4 of each entry and
+    of the layer output's largest magnitude (the forward tolerance of
+    tests/test_torch_models.py)."""
+    import importlib
+    calls = []
+
+    def recorder(fn):
+        def wrapped(cfg, lp, x, *a, **kw):
+            out = fn(cfg, lp, x, *a, **kw)
+            calls.append((fn, lp, x, a, kw,
+                          out[0] if isinstance(out, tuple) else out))
+            return out
+        return wrapped
+    mp = pytest.MonkeyPatch()
+    with mp.context() as m:
+        for mod, name in _LAYER_FNS:
+            module = importlib.import_module(f"repro_torch.models.{mod}")
+            m.setattr(module, name, recorder(getattr(module, name)))
+        model_api.forward(cpu, cfg, batch)
+    assert calls
+    names = {id(mod): n for n, mod in cpu.named_modules()}
+    on_card = dict(card.named_modules())
+
+    def to_card(v):
+        return v.to(cuda) if isinstance(v, torch.Tensor) else v
+    for i, (fn, lp, x, a, kw, want) in enumerate(calls):
+        out = fn(cfg, on_card[names[id(lp)]], x.to(cuda),
+                 *map(to_card, a), **{k: to_card(v) for k, v in kw.items()})
+        got = out[0] if isinstance(out, tuple) else out
+        tol = 2e-4 * float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=tol,
+                                   msg=lambda m, i=i: f"layer call {i}: {m}")
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs.base import ARCH_IDS
+from repro.configs.base import SHAPES as REF_SHAPES
 from repro.configs.base import get_config as ref_config
 from repro.models import layers as ref_layers
 from repro.models import model_api as ref_api
@@ -94,14 +95,18 @@ def test_configs_are_the_references():
             "repro.configs.base", fromlist=["SHAPES"]).SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# Full-size parameter counts the card runs hold (chip_smoke.py).
+N_PARAMS = {"zamba2-7b": 6_749_959_248, "mamba2-130m": 167_752_128,
+            "yi-9b": 8_829_407_232, "olmoe-1b-7b": 6_919_620_608,
+            "internvl2-2b": 1_893_828_608, "whisper-medium": 811_198_464}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_n_params_and_shapes_equal_the_references(arch):
     cfg, rcfg = get_config(arch), ref_config(arch)
     assert model_api.n_params(cfg) == ref_api.n_params(rcfg)
-    if arch == "zamba2-7b":
-        assert model_api.n_params(cfg) == 6_749_959_248
-    else:
-        assert model_api.n_params(cfg) == 167_752_128
+    if arch in N_PARAMS:
+        assert model_api.n_params(cfg) == N_PARAMS[arch]
     for B, S in ((2, 16), (3, 40)):
         want = ref_api.cache_shapes(rcfg, B, S, dtype=jnp.float32)
         got = model_api.cache_shapes(cfg, B, S, dtype=torch.float32)
@@ -170,34 +175,75 @@ def test_decode_matches_reference(pair):
                                    rtol=TOL, atol=TOL, err_msg=k)
 
 
-def test_init_params_and_carry_over_checks():
+@pytest.mark.parametrize("L", [384, 640])
+def test_forward_at_lengths_of_odd_128_blocks(L):
+    """L = 384 and 640 meet the kernel's conditions but are no multiple of
+    256: the port's block sizes divide them (gcd(L, 256)) and its forward
+    equals the reference's jnp path (its Pallas toggle asserts there)."""
+    arch = "zamba2-7b"
+    rcfg = ref_config(arch).reduced()
+    tree = ref_tree(rcfg, seed=0)
+    cfg = get_config(arch).reduced()
+    model = params_from_jax(cfg, tree, "cpu")
+    toks = _tokens(cfg, 1, L, seed=4)
+    got, _ = model_api.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
+    want = _ref_forward(rcfg, jax.tree.map(jnp.asarray, tree), toks, "jnp")
+    np.testing.assert_allclose(got.numpy(), want, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+
+
+def _first_leaf(tree, path=()):
+    k = sorted(tree)[0]
+    node = tree[k]
+    return _first_leaf(node, path + (k,)) if isinstance(node, dict) \
+        else path + (k,)
+
+
+def _without(tree, path):
+    """A copy of ``tree`` (dicts copied along ``path``) without ``path``."""
+    if len(path) == 1:
+        return {k: v for k, v in tree.items() if k != path[0]}
+    return dict(tree, **{path[0]: _without(tree[path[0]], path[1:])})
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_params_and_carry_over_checks(arch):
     """``init_params`` makes the reference's tree from a seed, the same
     values from the same seed; ``params_from_jax`` refuses a tree with a
-    key missing, a key too many or a shape that differs; the families not
-    ported raise."""
-    cfg = get_config("zamba2-7b").reduced()
+    key missing, a key too many or a shape that differs."""
+    cfg = get_config(arch).reduced()
     a = model_api.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
     b = model_api.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
     pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
     assert sum(p.numel() for p in pa.values()) == model_api.n_params(cfg)
     assert all(torch.equal(pa[k], pb[k]) for k in pa)
-    assert float(pa["shared_attn.ln1"].abs().max()) == 0.0
-    assert float(pa["mamba_super.0.0.D"].min()) == 1.0
-    tree = ref_tree(ref_config("zamba2-7b").reduced(), seed=1)
-    missing = dict(tree, mamba_super=dict(tree["mamba_super"]))
-    del missing["mamba_super"]["A_log"]
+    if arch == "zamba2-7b":
+        assert float(pa["shared_attn.ln1"].abs().max()) == 0.0
+        assert float(pa["mamba_super.0.0.D"].min()) == 1.0
+    tree = ref_tree(ref_config(arch).reduced(), seed=1)
     with pytest.raises(KeyError, match="missing"):
-        params_from_jax(cfg, missing, "cpu")
+        params_from_jax(cfg, _without(tree, _first_leaf(tree)), "cpu")
     with pytest.raises(KeyError, match="extra"):
         params_from_jax(cfg, dict(tree, bogus=np.zeros(3)), "cpu")
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(cfg, dict(tree, final_norm=np.zeros(3)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_api.pdefs(get_config("yi-9b"))
 
 
-def test_make_batch():
-    cfg = get_config("mamba2-130m").reduced()
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_make_batch(arch):
+    """The same seed gives the reference's batch: the same keys in the same
+    order and equal values, at the cells' full shapes."""
+    cfg, rcfg = get_config(arch).reduced(), ref_config(arch).reduced()
+    for cell in ("train_4k", "decode_32k"):
+        got = model_api.make_batch(cfg, SHAPES[cell],
+                                   np.random.default_rng(0), device="cpu")
+        want = ref_api.make_batch(rcfg, REF_SHAPES[cell],
+                                  np.random.default_rng(0))
+        assert list(got) == list(want), cell
+        for k in want:
+            assert tuple(got[k].shape) == want[k].shape, (cell, k)
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                          err_msg=f"{cell} {k}")
     batch = model_api.make_batch(cfg, SHAPES["train_4k"],
                                  np.random.default_rng(0), device="cpu")
     assert batch["tokens"].shape == batch["labels"].shape == (256, 4096)

@@ -164,6 +164,33 @@ def test_stores_are_byte_identical_both_ways(small_valued, tmp_path):
                 np.testing.assert_array_equal(u, v)
 
 
+@pytest.mark.parametrize("scale,seed,undirected",
+                         [(8, 0, False), (11, 3, False), (10, 7, True)])
+def test_rmat_and_pattern_dedup_equal_the_reference(scale, seed, undirected):
+    """The port builds R-MAT's ids in place and dedups a pattern by sorting
+    its keys; the graph and a pattern's dedup (duplicates, int32 input)
+    must still be the reference's arrays exactly."""
+    from repro.core.formats import COO as RefCOO
+    from repro.sparse.generate import rmat as ref_rmat
+    from repro_torch.sparse.generate import rmat
+    want = ref_rmat(scale, 8, seed=seed, undirected=undirected)
+    got = rmat(scale, 8, seed=seed, undirected=undirected)
+    assert got.vals is None and want.vals is None
+    for a, b in ((want.rows, got.rows), (want.cols, got.cols)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(seed)
+    n = (1 << scale) + 3
+    rows = rng.integers(0, n, 8 * n)
+    cols = rng.integers(0, n // 5, 8 * n)
+    for r, c in ((rows, cols), (rows.astype(np.int32), cols.astype(np.int32))):
+        rd = RefCOO(n, n, r, c, None).dedup()
+        pd = coo_from_arrays(n, n, r, c, None).dedup()
+        assert pd.vals is None and pd.nnz < r.size
+        for a, b in ((rd.rows, pd.rows), (rd.cols, pd.cols)):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("T,C", [(32, 8), (256, 64), (4096, 1024)])
 def test_chunking_and_dedup_equal_the_reference(T, C):
     """The port orders entries with one stable argsort of a combined key

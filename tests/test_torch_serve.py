@@ -1,4 +1,5 @@
-"""The port's ``BatchServer`` against the JAX package's on the same weights:
+"""The port's ``BatchServer`` against the JAX package's on the same weights
+(reduced Zamba2-7B, Mamba2-130M, Yi-9B, OLMoE-1B-7B and InternVL2-2B):
 3 requests, 2 slots (a full wave and a wave of one), prompts of 12 tokens,
 greedy decoding.  The token lists must be identical: both servers run the
 same steps (the reference's per-slot prefill through decode steps and its
@@ -27,7 +28,8 @@ def _requests(mod, vocab, seed=0):
             for i in range(3)]
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "yi-9b",
+                                  "olmoe-1b-7b", "internvl2-2b"])
 def test_servers_give_the_same_tokens(arch):
     rcfg = ref_config(arch).reduced()
     ref = ref_serve.BatchServer(rcfg, slots=2, max_seq=32, seed=3)
@@ -42,8 +44,11 @@ def test_servers_give_the_same_tokens(arch):
     assert port.stats == ref.stats
 
 
-def test_cli_runs_on_the_cpu(capsys):
-    assert serve.main(["--arch", "mamba2-130m", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["mamba2-130m", "yi-9b", "whisper-medium"])
+def test_cli_runs_on_the_cpu(capsys, arch):
+    assert serve.main(["--arch", arch, "--device", "cpu",
                        "--requests", "2", "--prompt-len", "4", "--gen",
                        "3"]) == 0
-    assert "2 requests, 6 tokens" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "2 requests, 6 tokens" in out
+    assert ("needs a frames frontend" in out) == (arch == "whisper-medium")
