@@ -119,7 +119,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ones run K3 with softcap 50); InternVL2-2B (256 patches before 2048
    tokens: K3 at L = 2304); Whisper-medium (1,500 frames, a decoder of
    L = 384: 24 K3); Llama4-Scout at 2 of its 48 layers (top-1 routing, a
-   shared expert).
+   shared expert);
+13. training: MiniCPM-2B at one layer, full width: its K3 call at
+   MiniCPM's shape (2, 2048, 36, 36, 64) checked as in phase 9 and timed
+   against its bound and SDPA, then one ``loss_fn`` step's loss and every
+   gradient through the kernels within 2e-4 (relative L2) of the plain
+   step's, then 4 ``Trainer`` steps (B = 2, L = 2048, WSD with the
+   launcher's defaults; 2 K3 launches each) with a falling loss;
+   Mamba2-130M at full width: 4 steps (48 K4 launches each), a trainer
+   restored from the step-2 checkpoint equal to the uninterrupted run bit
+   for bit, and a non-finite loss twice in a row from step 4 rolled back
+   to that checkpoint and run on to step 6, equal to a clean run;
+   MiniCPM-2B at full width and depth in a ``Trainer`` (float32
+   parameters and AdamW moments on the card): each of its 40 layers,
+   teacher-forced with its input and upstream gradient from a plain step,
+   through the kernels against the plain versions (output per token,
+   input and parameter gradients within 2e-4, every wq/wk/wv gradient
+   nonzero); then 4 steps with 80 K3 launches each (the forward pass and
+   its recompute) and finite losses (a falling one unless the first
+   gradient norm shows the reference init's explosion at depth:
+   ``run_minicpm_training``), s a step, tokens/s, peak memory and the
+   AdamW update's ms logged; and ``python -m repro_torch.launch.train
+   --arch mamba2-130m --full --steps 2`` as its own process (from the
+   phase's start until before MiniCPM-2B's full-depth timed parts), exit
+   0 and a falling loss.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without
@@ -132,6 +155,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -139,6 +163,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -2883,6 +2908,494 @@ def run_attention_phase(seed, rng, dev, card, models=ATTENTION_MODELS):
     return records, launches
 
 
+# -- phase 13: training -------------------------------------------------------
+TRAIN_B, TRAIN_L, TRAIN_STEPS = 2, 2048, 4
+# A kernel step's loss and gradients, and a layer's output (per token) and
+# gradients, against the plain ones on the same inputs, in relative L2: the
+# forward tolerance of tests/test_torch_models.py.
+TRAIN_TOL = 2e-4
+# A first gradient norm above this (the clip norm is 1) marks the reference
+# init's explosion at depth, under which neither package's trainer makes the
+# loss fall in a few steps (tests/test_torch_train_depth.py); at or below it
+# the full-depth loss must fall.
+STALL_NORM = 1e9
+# non-finite steps in a row before the Mamba2 trainer rolls back
+NAN_PATIENCE = 2
+# the launcher's own process: bound on its run
+LAUNCHER_TIMEOUT_S = 300
+
+
+def ptxas_entry(ptxas: str, tag: str) -> str:
+    """What ``-Xptxas -v`` reported for the kernel whose mangled name holds
+    ``tag``: its registers, stack and spills."""
+    out, on = [], False
+    for ln in ptxas.splitlines():
+        if "Compiling entry function" in ln:
+            on = tag in ln
+        elif on and ("Used" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return "; ".join(out) or "not found"
+
+
+def train_batch(cfg, seed: int, dev):
+    """The first batch of the synthetic token stream from ``seed`` (B =
+    TRAIN_B, L = TRAIN_L) on the card."""
+    from repro_torch.train.data import DataConfig, TokenStream
+    raw = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_L,
+                                      global_batch=TRAIN_B, seed=seed)))
+    return {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+
+
+def grads_of(model, cfg, batch, impl: str):
+    """Loss and every parameter's gradient of one step's backward with K3
+    and K4 as ``impl`` ("kernel" or "plain"), and the K3 launches."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.models import model_api
+    model.zero_grad(set_to_none=True)
+    k3.reset_launches()
+    with kernel_impl(impl):
+        loss, _ = model_api.loss_fn(model, cfg, batch)
+        loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, k3.LAUNCHES["flash_attention"]
+
+
+def run_one_layer_check(seed, dev, card, k3_regs):
+    """MiniCPM-2B at one layer, full width: its K3 call (MiniCPM's shape)
+    checked against the plain version within the attention_scale limit;
+    one step's loss and every gradient through the kernels against the
+    plain step's (check (a)); then TRAIN_STEPS steps of a ``Trainer`` at
+    one layer, where the loss must fall.  Returns the K3 call's inputs
+    and its largest difference, for timing."""
+    from repro_torch.models import model_api
+    t0 = time.perf_counter()
+    cfg, model = make_model("minicpm-2b", seed, dev, depth=1)
+    batch = train_batch(cfg, seed, dev)
+    stats = {}
+    with kernel_impl("plain"), checked_calls(stats), torch.no_grad():
+        model_api.forward(model, cfg, {"tokens": batch["tokens"]},
+                          logits_last_only=True)
+    st = stats["K3"]
+    log(f"minicpm-2b K3 at {tuple(st['first'][0][0].shape)}: max |kernel - "
+        f"plain| {st['max_abs_diff']}, {st['share']} of the limit "
+        f"({FLOAT_TOL} of the error scale plus the underflow term); its "
+        f"hd-64 float32 instantiation: {k3_regs} [{card}]")
+    check(st["share"] <= 1.0, "minicpm-2b K3 within its limit of the plain "
+          "version")
+    model.requires_grad_(True)
+    want_loss, want, _ = grads_of(model, cfg, batch, "plain")
+    got_loss, got, n_k3 = grads_of(model, cfg, batch, "kernel")
+    worst = max((rel_l2(got[k], want[k]), k) for k in want)
+    dloss = abs(got_loss - want_loss) / abs(want_loss)
+    log(f"minicpm-2b at one layer, one step (B = {TRAIN_B}, L = {TRAIN_L})"
+        f" through the kernels against the plain step: loss {got_loss} vs "
+        f"{want_loss} (relative {dloss}), gradients at most {worst[0]} "
+        f"relative L2 ({worst[1]}; limit {TRAIN_TOL}); {n_k3} K3 launches "
+        f"[{card}]")
+    check(n_k3 == 2, "minicpm-2b one layer: K3 in the forward pass and its "
+          "recompute")
+    check(dloss <= TRAIN_TOL and worst[0] <= TRAIN_TOL, "minicpm-2b one "
+          f"layer: loss and every gradient within {TRAIN_TOL} of the plain "
+          "step's")
+    del model, want, got
+    torch.cuda.empty_cache()
+    tr, launches, _ = train_steps(cfg, seed, dev)
+    log_steps("minicpm-2b at one layer", tr.metrics_log, launches, "K3", [],
+              0, card)
+    check(launches == [2] * TRAIN_STEPS, "minicpm-2b one layer: 2 K3 "
+          "launches a step")
+    check_losses("minicpm-2b at one layer", tr.metrics_log, falls=True)
+    del tr
+    torch.cuda.empty_cache()
+    log(f"minicpm-2b at one layer: {time.perf_counter() - t0:.1f} s [{card}]")
+    return st["first"], st["max_abs_diff"]
+
+
+def train_steps(cfg, seed, dev, trainer=None, adamw_ms=None):
+    """TRAIN_STEPS steps of ``trainer`` (by default a new one for ``cfg``
+    with the launcher's settings), each with K3's launches counted from 0;
+    returns the trainer, the launches a step and the peak memory of the
+    steps."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.train.loop import TrainConfig, Trainer
+    if trainer is None:
+        oc, dc = launcher_opt(cfg, seed)
+        trainer = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, seed=seed), oc,
+                          dc, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = []
+    with adamw_timed([] if adamw_ms is None else adamw_ms):
+        for _ in range(TRAIN_STEPS):
+            k3.reset_launches()
+            trainer.run(1)
+            launches.append(k3.LAUNCHES["flash_attention"])
+    return trainer, launches, torch.cuda.max_memory_allocated()
+
+
+def run_layer_grads_check(cfg, model, seed, dev, card):
+    """Check (b), full depth, teacher-forced: a plain step records each
+    layer's input and the gradient of the loss with respect to its output;
+    then each layer alone, on that input and with that upstream gradient,
+    through the kernels against the plain versions: its output per token,
+    its input's and its parameters' gradients in relative L2, every
+    ``wq``/``wk``/``wv`` gradient nonzero."""
+    from repro_torch.models import model_api
+    from repro_torch.models import transformer as tf
+    batch = train_batch(cfg, seed + 1, dev)
+    ins, outs, recording = [], [], [True]
+
+    def record(fn):
+        def wrapped(cfg_, lp, x, *a, **kw):
+            out = fn(cfg_, lp, x, *a, **kw)
+            if recording[0]:          # not the backward's recompute
+                ins.append((lp, x.detach()))
+                outs.append(out[0])
+            return out
+        return wrapped
+    with kernel_impl("plain"), patched(tf, "_attn_mlp_layer", record):
+        loss, _ = model_api.loss_fn(model, cfg, batch)
+        recording[0] = False
+        ups = torch.autograd.grad(loss, outs)
+    del outs
+    check(len(ins) == cfg.n_layers, f"minicpm-2b: {cfg.n_layers} layers "
+          "recorded")
+    L = batch["tokens"].shape[1]
+    pos = torch.arange(L, device=dev)
+    worst = dict(out=(0.0, -1), x=(0.0, -1), params=(0.0, -1, ""))
+    zero = []
+    for i, ((lp, x), up) in enumerate(zip(ins, ups)):
+        res = {}
+        names = [n for n, _ in lp.named_parameters()]
+        for impl in ("plain", "kernel"):
+            xi = x.clone().requires_grad_(True)
+            with kernel_impl(impl):
+                out = tf._attn_mlp_layer(cfg, lp, xi, pos, lp.window,
+                                         kv_chunk=min(1024, L))[0]
+                res[impl] = (out.detach(), torch.autograd.grad(
+                    out, [xi] + list(lp.parameters()), up))
+        (po, pg), (ko, kg) = res["plain"], res["kernel"]
+        r = float(row_rel(ko, po).max())
+        worst["out"] = max(worst["out"], (r, i))
+        worst["x"] = max(worst["x"], (rel_l2(kg[0], pg[0]), i))
+        for n, a, b in zip(names, kg[1:], pg[1:]):
+            worst["params"] = max(worst["params"], (rel_l2(a, b), i, n))
+            if n.split(".")[-1] in ("wq", "wk", "wv") and not bool(
+                    (a != 0).any()):
+                zero.append((i, n))
+        del res
+    log(f"minicpm-2b, {cfg.n_layers} layers teacher-forced (each layer's "
+        f"input and upstream gradient from a plain step, B = {TRAIN_B}, L = "
+        f"{L}), kernels against plain: output per token at most "
+        f"{worst['out'][0]} (layer {worst['out'][1]}), input gradient "
+        f"{worst['x'][0]} (layer {worst['x'][1]}), parameter gradients "
+        f"{worst['params'][0]} (layer {worst['params'][1]} "
+        f"{worst['params'][2]}), relative L2 (limit {TRAIN_TOL}); zero "
+        f"wq/wk/wv gradients: {zero} [{card}]")
+    check(max(worst["out"][0], worst["x"][0], worst["params"][0])
+          <= TRAIN_TOL, f"minicpm-2b: every layer's output and gradients "
+          f"through the kernels within {TRAIN_TOL} of the plain ones")
+    check(not zero, "minicpm-2b: every wq, wk, wv gradient through K3 is "
+          "nonzero")
+
+
+@contextlib.contextmanager
+def adamw_timed(ms: list):
+    """The trainer's AdamW update timed by CUDA events, each call's ms
+    appended to ``ms``."""
+    from repro_torch.train import loop
+
+    def make(fn):
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+            return out
+        return wrapped
+    with patched(loop, "adamw_update", make):
+        yield
+
+
+def k3_backward_ms(first, fwd_ms: float, card) -> float:
+    """Milliseconds of K3's backward (its plain version recomputed and
+    differentiated) at ``first``'s inputs: a forward and backward through
+    the autograd Function, less the forward alone (``fwd_ms``)."""
+    from repro_torch.kernels import flash_attention as k3
+    (q, k, v), kw = first
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    go = torch.randn_like(q)
+    both = cuda_ms(lambda: torch.autograd.backward(
+        k3.flash_attention(*ins, **kw), go), reps=3, warmup=1)
+    log(f"K3 minicpm-2b forward and backward through the autograd Function "
+        f"{both} ms, so the backward's plain recompute {both - fwd_ms} ms a "
+        f"call (CUDA events, 3 calls) [{card}]")
+    return both - fwd_ms
+
+
+def launcher_opt(cfg, seed: int):
+    """The launcher's data and AdamW settings for TRAIN_STEPS steps (WSD,
+    lr 3e-3, warmup a tenth of the steps), at B = TRAIN_B, L = TRAIN_L."""
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    return (AdamWConfig(lr=3e-3, schedule="wsd",
+                        warmup_steps=max(TRAIN_STEPS // 10, 1),
+                        total_steps=TRAIN_STEPS),
+            DataConfig(vocab=cfg.vocab, seq_len=TRAIN_L,
+                       global_batch=TRAIN_B, seed=seed))
+
+
+def run_minicpm_training(seed, dev, card, launcher, k3_call):
+    """MiniCPM-2B at full width and depth through ``Trainer``: check (b)
+    on its model; once the launcher's process has ended, K3 timed on
+    ``k3_call`` (the one-layer model's call: its inputs and largest
+    difference); then TRAIN_STEPS steps, each with its K3 launches counted
+    from 0 (the forward pass and the recompute: 2 a layer), their losses
+    finite.  At 40 layers the reference's init makes the gradients grow
+    some 2.5x a layer towards the embedding (a global norm near 1e17), so
+    clipping leaves the upper layers' gradients below AdamW's eps and the
+    loss does not fall in a few steps, as under the reference's own
+    trainer (``tests/test_torch_train_depth.py`` holds both packages to
+    that at 40 layers); so the last loss must fall only when the first
+    gradient norm is at most STALL_NORM.  The falling loss is held at one
+    layer (run_one_layer_check) and on Mamba2-130M.  Returns K3's record
+    and the launches a step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model_api
+    from repro_torch.train.loop import TrainConfig, Trainer
+    cfg = get_config("minicpm-2b")
+    oc, dc = launcher_opt(cfg, seed)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, seed=seed), oc, dc,
+                 device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tr.params.values())
+    check(n == model_api.n_params(cfg), "minicpm-2b: every parameter made")
+    log(f"minicpm-2b trainer: {n} float32 parameters and two AdamW moments "
+        f"made on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"[{card}]")
+    run_layer_grads_check(cfg, tr.model, seed, dev, card)
+    log(f"minicpm-2b check (b): {time.perf_counter() - t0:.1f} s [{card}]")
+    wait_launcher(launcher, card)
+    first, diff = k3_call
+    record = dict(time_k3(first, "minicpm-2b", card), max_abs_diff=diff)
+    record["backward_ms"] = k3_backward_ms(first, record["ms"], card)
+    adamw_ms = []
+    t0 = time.perf_counter()
+    tr, launches, peak = train_steps(cfg, seed, dev, tr, adamw_ms)
+    log_steps("minicpm-2b", tr.metrics_log, launches, "K3", adamw_ms, peak,
+              card)
+    check(launches == [2 * cfg.n_layers] * TRAIN_STEPS, f"minicpm-2b: "
+          f"{2 * cfg.n_layers} K3 launches a step, got {launches}")
+    gnorm = tr.metrics_log[0]["grad_norm"]
+    stalls = gnorm > STALL_NORM
+    log(f"minicpm-2b: first gradient norm {gnorm} "
+        f"{'above' if stalls else 'at most'} {STALL_NORM}: the last loss "
+        f"{'need not' if stalls else 'must'} fall [{card}]")
+    check_losses("minicpm-2b", tr.metrics_log, falls=not stalls)
+    del tr
+    torch.cuda.empty_cache()
+    log(f"minicpm-2b steps: {time.perf_counter() - t0:.1f} s [{card}]")
+    return record, launches
+
+
+def log_steps(arch, metrics, launches, kernel, adamw_ms, peak, card):
+    tokens = TRAIN_B * TRAIN_L
+    log(f"{arch} training (B = {TRAIN_B}, L = {TRAIN_L}, WSD, the "
+        f"launcher's defaults): losses {[m['loss'] for m in metrics]}, s a "
+        f"step {[round(m['step_time'], 4) for m in metrics]}, tokens/s "
+        f"{[round(tokens / m['step_time'], 1) for m in metrics]}, grad "
+        f"norms {[round(m['grad_norm'], 4) for m in metrics]}, lr "
+        f"{[m['lr'] for m in metrics]}; {kernel} launches a step {launches}"
+        + (f"; AdamW update ms {[round(t, 3) for t in adamw_ms]}; peak "
+           f"memory {peak / 2**30:.2f} GiB ({peak} B, "
+           "torch.cuda.max_memory_allocated)" if adamw_ms else "")
+        + f" [{card}]")
+
+
+def check_losses(arch, metrics, falls: bool):
+    losses = [m["loss"] for m in metrics]
+    check(all(math.isfinite(x) for x in losses), f"{arch}: finite losses: "
+          f"{losses}")
+    if falls:
+        check(losses[-1] < losses[0], f"{arch}: the last loss below the "
+              f"first: {losses}")
+
+
+def same_state(a, b) -> Tuple[bool, float]:
+    """Whether two trainers hold the same parameters, moments and step bit
+    for bit, and the largest parameter difference."""
+    same = int(a.opt_state.step) == int(b.opt_state.step)
+    diff = 0.0
+    for k, p in a.params.items():
+        d = float((p.detach() - b.params[k].detach()).abs().max())
+        diff = max(diff, d)
+        same = same and d == 0.0 and torch.equal(
+            a.opt_state.mu[k], b.opt_state.mu[k]) and torch.equal(
+            a.opt_state.nu[k], b.opt_state.nu[k])
+    return same, diff
+
+
+@contextlib.contextmanager
+def saves_off(tr):
+    """``tr`` takes its steps without writing checkpoints (each run of a
+    trainer with a checkpoint directory ends with a 2 GB save here)."""
+    tc = tr.tc
+    tr.tc = dataclasses.replace(tc, ckpt_dir=None)
+    try:
+        yield
+    finally:
+        tr.tc = tc
+
+
+def run_mamba_training(seed, dev, card, tmp):
+    """Mamba2-130M at full width: an uninterrupted run of TRAIN_STEPS steps
+    in two runs of two (K4 launches counted, 2 a layer a step), a second
+    trainer restored from the first one's step-2 checkpoint taking the same
+    last two steps; then a non-finite loss NAN_PATIENCE times in a row
+    from step 4, rolled back to the newest checkpoint (step 2) and run on
+    to step 6, against the second trainer's clean steps 5-6.  Returns the
+    K4 launches of the uninterrupted run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd_chunk as k4
+    from repro_torch.models import model_api
+    from repro_torch.train.loop import TrainConfig, Trainer
+    cfg = get_config("mamba2-130m")
+    oc, dc = launcher_opt(cfg, seed)
+    ck = tmp / "mamba2_ckpt"
+    t0 = time.perf_counter()
+
+    def trainer():
+        return Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, ckpt_every=1000,
+                                        ckpt_dir=str(ck), seed=seed,
+                                        nan_patience=NAN_PATIENCE),
+                       oc, dc, device=dev)
+
+    def steps(tr, n):
+        k4.reset_launches()
+        t = time.perf_counter()
+        tr.run(n)
+        return k4.LAUNCHES["ssd_chunked"], time.perf_counter() - t
+
+    a = trainer()
+    n1, s1 = steps(a, 2)
+    t = time.perf_counter()
+    b = trainer()
+    s_restore = time.perf_counter() - t
+    check(b.step == 2 and b.data.next_index == 2, "mamba2-130m: a new "
+          "trainer restores the step-2 checkpoint and the stream position")
+    with saves_off(a), saves_off(b):
+        n2, s2 = steps(a, 2)
+        steps(b, 2)
+    same, diff = same_state(a, b)
+    la = [m["loss"] for m in a.metrics_log]
+    lb = [m["loss"] for m in b.metrics_log]
+    log(f"mamba2-130m checkpoint/restart: two steps and a 2.0 GB "
+        f"checkpoint in {s1:.2f} s, a new trainer restored from it in "
+        f"{s_restore:.2f} s taking steps 3-4 against the uninterrupted "
+        f"run's ({s2:.2f} s): losses {lb} vs {la[2:]}; parameters, moments "
+        f"and step {'bit for bit equal' if same else 'differ'} (largest "
+        f"parameter difference {diff}) [{card}]")
+    check(same and lb == la[2:], "mamba2-130m: the restored run equals the "
+          "uninterrupted one bit for bit")
+    log_steps("mamba2-130m", a.metrics_log, [n1 // 2, n2 // 2], "K4", [], 0,
+              card)
+    check([n1, n2] == [2 * 2 * cfg.n_layers] * 2, f"mamba2-130m: "
+          f"{2 * cfg.n_layers} K4 launches a step, got {n1}, {n2} a run of 2")
+    check_losses("mamba2-130m", a.metrics_log, falls=True)
+
+    poisoned = []
+
+    def nan_loss(fn):
+        def wrapped(*args, **kw):
+            loss, m = fn(*args, **kw)
+            if len(poisoned) < NAN_PATIENCE:
+                poisoned.append(1)
+                loss = loss * float("nan")
+                m = dict(m, loss=loss)
+            return loss, m
+        return wrapped
+    with patched(model_api, "loss_fn", nan_loss):
+        a.run(2)
+    with saves_off(b):
+        b.run(2)
+    same, diff = same_state(a, b)
+    tail = [(m["step"], m["loss"]) for m in a.metrics_log[TRAIN_STEPS:]]
+    log(f"mamba2-130m rollback: {NAN_PATIENCE} non-finite losses in a row "
+        f"(patience {NAN_PATIENCE}) from step 4, back to the step-2 "
+        f"checkpoint and on to step 6: steps and losses {tail}; against a "
+        f"trainer that took steps 5-6 cleanly: "
+        f"{'bit for bit equal' if same else 'differ'} (largest parameter "
+        f"difference {diff}) [{card}]")
+    check([s for s, _ in tail] == [5, 3, 4, 5, 6] and math.isnan(tail[0][1])
+          and a.step == 6, "mamba2-130m: the trainer rolled back to its "
+          "step-2 checkpoint")
+    check(same, "mamba2-130m: after the rollback, the state of a clean run")
+    log(f"mamba2-130m: {time.perf_counter() - t0:.1f} s [{card}]")
+    del a, b
+    torch.cuda.empty_cache()
+    return n1 + n2
+
+
+def start_launcher():
+    """``python -m repro_torch.launch.train --arch mamba2-130m --full
+    --steps 2`` as its own process, on the card by default."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "mamba2-130m", "--full", "--steps", "2"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def wait_launcher(proc, card):
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=LAUNCHER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, "the train launcher ended within its time")
+    lines = out.strip().splitlines()
+    log(f"launcher (its own process, waited {time.perf_counter() - t0:.1f} "
+        f"s): exit {proc.returncode}; " + " | ".join(lines[-3:])
+        + f" [{card}]")
+    done = [ln for ln in lines if "done:" in ln]
+    ok = proc.returncode == 0 and len(done) == 1
+    if ok:
+        first, last = (float(v) for v in done[0].split("loss ")[1]
+                       .split(" -> "))
+        ok = math.isfinite(last) and last < first
+    check(ok, "python -m repro_torch.launch.train --arch mamba2-130m --full "
+          "--steps 2 exits 0 with a falling loss")
+
+
+def run_training_phase(seed, dev, card, tmp, k3_regs):
+    """Phase 13: MiniCPM-2B at one layer (check (a)), Mamba2-130M (steps,
+    checkpoint/restart, rollback), MiniCPM-2B at full depth (check (b),
+    then TRAIN_STEPS timed steps), and the launcher as its own process,
+    run beside the first two and waited for before MiniCPM-2B's timed
+    parts.  Returns the K3 record at MiniCPM's shape and the training
+    launches of K3 and K4."""
+    t0 = time.perf_counter()
+    launcher = start_launcher()
+    try:
+        k3_call = run_one_layer_check(seed, dev, card, k3_regs)
+        k4_launches = run_mamba_training(seed, dev, card, tmp)
+        record, k3_launches = run_minicpm_training(seed, dev, card,
+                                                   launcher, k3_call)
+    finally:
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.communicate()
+    log(f"training: {time.perf_counter() - t0:.1f} s [{card}]")
+    return record, sum(k3_launches), k4_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2910,7 +3423,11 @@ def main() -> int:
     warnings.filterwarnings("ignore", message="Warning: Profiler clears")
 
     t0 = time.perf_counter()
-    for name, info in build_all().items():
+    builds = build_all()
+    # K3's hd-64 float32 instantiation (KS = 8): MiniCPM-2B's
+    k3_regs = ptxas_entry(builds["flash_attention"].ptxas,
+                          "flash_fwd_kernelILi8EfE")
+    for name, info in builds.items():
         regs = [ln.split(":", 1)[1].strip() for ln in info.ptxas.splitlines()
                 if "Used" in ln]
         spills = sorted({ln.strip() for ln in info.ptxas.splitlines()
@@ -2965,6 +3482,11 @@ def main() -> int:
             "attention models", run_attention_phase, args.seed, rng, dev,
             card)
         records.update(attn_records)
+        torch.cuda.empty_cache()
+        train_record, k3_train, k4_train = phase(
+            "training", run_training_phase, args.seed, dev, card, tmp,
+            k3_regs)
+        records["K3 minicpm-2b"] = train_record
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3002,9 +3524,17 @@ def main() -> int:
                          source=src + "flash_attention.cu",
                          replaces="src/repro/kernels/flash_attention.py:85",
                          launches=attn_launches["yi-9b"]),
+        # K3 at MiniCPM-2B's training shape (hd 64, G = 1): its launches
+        # are the training run's (phase 13)
+        "K3 minicpm-2b": dict(
+            name="flash_attention (K3), MiniCPM-2B training",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:85",
+            launches=k3_train),
     }
     kernels = []
-    for key in ("K1a", "K1b", "K2", "K2 mxu", "K3", "K4", "K3 yi-9b"):
+    for key in ("K1a", "K1b", "K2", "K2 mxu", "K3", "K4", "K3 yi-9b",
+                "K3 minicpm-2b"):
         r = records[key]
         kernels.append(dict(
             meta[key], route="cuda",
@@ -3020,8 +3550,18 @@ def main() -> int:
     kernels[0]["launches_overlay"] = overlay_launches
     kernels[0]["launches_serving"] = serving_launches
     kernels[0]["launches_net"] = net_launches
+    by_key = dict(zip(("K1a", "K1b", "K2", "K2 mxu", "K3", "K4", "K3 yi-9b",
+                       "K3 minicpm-2b"), kernels))
     # K3's launches in each attention family's prefill (phase 12)
-    kernels[-1]["launches_by_model"] = attn_launches
+    by_key["K3 yi-9b"]["launches_by_model"] = attn_launches
+    # the kernels' launches in training (phase 13): MiniCPM-2B's 4 steps
+    # (K3), Mamba2-130M's uninterrupted 4 steps (K4)
+    for key in ("K3", "K3 yi-9b", "K3 minicpm-2b"):
+        by_key[key]["launches_train"] = k3_train
+    by_key["K4"]["launches_train"] = k4_train
+    # K3's backward (its plain version recomputed) at MiniCPM-2B's shape
+    by_key["K3 minicpm-2b"]["backward_ms"] = records["K3 minicpm-2b"][
+        "backward_ms"]
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel ran on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

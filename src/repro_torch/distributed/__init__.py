@@ -1,2 +1,3 @@
-"""Sharded scans: one store's tile rows split across executors, on one
-card or several."""
+"""Sharded scans (one store's tile rows split across executors, on one
+card or several) and the training loop's fault handling (straggler
+detection, heartbeats, elastic re-mesh plans)."""

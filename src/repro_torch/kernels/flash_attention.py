@@ -7,7 +7,11 @@ plain PyTorch version beside it.
 H = KV * G, causal or not, an optional tanh softcap, scale 1/sqrt(hd),
 online softmax in float32, output in q's dtype.  It launches the kernel for
 tensors on the card (counted in ``LAUNCHES``) and runs the plain version for
-tensors on the CPU; anything else raises.
+tensors on the CPU; anything else raises.  With grad enabled and an input
+that requires grad, a card call goes through :class:`FlashAttentionFn`:
+its forward launches the kernel and keeps only q, k and v; its backward
+recomputes the plain version and differentiates it (the reference's
+kernel is forward-only, and its training runs its plain path).
 
 :func:`attention_chunked` is the plain version: the online-softmax scan
 over key chunks written from the Pallas body, generalised to the cases the
@@ -114,19 +118,8 @@ def _check(q, k, v, Bq: int, Bk: int) -> None:
                          f"of Bq = {Bq} and Bk = {Bk}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, softcap: float = 0.0, Bq: int = 256,
-                    Bk: int = 256) -> torch.Tensor:
-    """Attention of q (B, L, H, hd) over k, v (B, S, KV, hd); returns
-    (B, L, H, hd) in q's dtype.  ``Bq``/``Bk`` are the reference's block
-    sizes: L and S must be multiples of them (the kernel tiles by its own
-    block shape whatever they are)."""
-    _check(q, k, v, Bq, Bk)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
-                                     Bq=Bq, Bk=Bk)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+def _launch(q, k, v, causal: bool, softcap: float) -> torch.Tensor:
+    """One launch of the kernel on card tensors that ``_check`` passed."""
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     if hd > MAX_HD:
@@ -145,3 +138,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     count_launch(LAUNCHES, "flash_attention")
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K3 under autograd: the forward launches the kernel and saves only
+    its inputs; the backward recomputes :func:`flash_attention_plain` on
+    them with grad enabled and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, softcap: float, Bk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, softcap, Bk)
+        return _launch(q, k, v, causal, softcap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        causal, softcap, Bk = ctx.args
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = flash_attention_plain(*ins, causal=causal, softcap=softcap,
+                                        Bk=Bk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, softcap: float = 0.0, Bq: int = 256,
+                    Bk: int = 256) -> torch.Tensor:
+    """Attention of q (B, L, H, hd) over k, v (B, S, KV, hd); returns
+    (B, L, H, hd) in q's dtype.  ``Bq``/``Bk`` are the reference's block
+    sizes: L and S must be multiples of them (the kernel tiles by its own
+    block shape whatever they are; ``Bk`` is the key chunk of the plain
+    version, and of the backward's recompute)."""
+    _check(q, k, v, Bq, Bk)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
+                                     Bq=Bq, Bk=Bk)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, float(softcap), Bk)
+    return _launch(q, k, v, causal, softcap)

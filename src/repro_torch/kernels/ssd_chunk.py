@@ -9,7 +9,12 @@ dh) in x's dtype and the final state (B, H, dh, N) in float32.  For
 tensors on the card it launches the kernel (four launches on the card a
 call, counted once in ``LAUNCHES``) with workspaces it allocates
 (:func:`workspace_shapes`); for tensors on the CPU it runs the plain
-version; anything else raises.
+version; anything else raises.  With grad enabled and an input that
+requires grad, a card call goes through :class:`SSDChunkedFn`: its forward
+launches the kernel and keeps only the inputs; its backward recomputes the
+plain version and differentiates it, through y and the final state (the
+reference's kernel is forward-only, and its training runs its plain
+path).
 
 :func:`ssd_scan` is the plain version, written from the Pallas body: per
 chunk of Q rows the decay ``exp(segsum(dt*A))`` (never exponentiated above
@@ -130,15 +135,10 @@ def _check(x, dt, A, Bm, Cm, D, Q: int) -> None:
         raise ValueError(f"L = {L} must be a multiple of Q = {Q}")
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, D, *, Q: int = 128
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SSD scan with chunk length Q; returns (y (B, L, H, dh) in x's dtype,
-    final state (B, H, dh, N) float32)."""
-    _check(x, dt, A, Bm, Cm, D, Q)
-    if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=Q)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _launch(x, dt, A, Bm, Cm, D, Q: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the kernel (four launches) on card tensors that
+    ``_check`` passed."""
     Bb, L, H, dh = x.shape
     N = Bm.shape[-1]
     if dh > MAX_DH or N > MAX_N:
@@ -160,3 +160,43 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, Q: int = 128
         raise RuntimeError(f"SSD chunk kernel launch failed: CUDA error {err}")
     count_launch(LAUNCHES, "ssd_chunked")
     return y, state
+
+
+class SSDChunkedFn(torch.autograd.Function):
+    """K4 under autograd: the forward launches the kernel and saves only
+    its inputs; the backward recomputes :func:`ssd_chunked_plain` on them
+    with grad enabled and returns its gradients through y and the final
+    state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, Q: int):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.Q = Q
+        return _launch(x, dt, A, Bm, Cm, D, Q)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad[:6])]
+        with torch.enable_grad():
+            outs = ssd_chunked_plain(*ins, Q=ctx.Q)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wrt, (grad_y, grad_state),
+                                             allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D, *, Q: int = 128
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD scan with chunk length Q; returns (y (B, L, H, dh) in x's dtype,
+    final state (B, H, dh, N) float32)."""
+    _check(x, dt, A, Bm, Cm, D, Q)
+    if x.device.type == "cpu":
+        return ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=Q)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    ins = (x, dt, A, Bm, Cm, D)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return SSDChunkedFn.apply(*ins, Q)
+    return _launch(*ins, Q)

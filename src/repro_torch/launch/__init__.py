@@ -1,1 +1,1 @@
-"""Launchers: the batched serving loop."""
+"""Launchers: the batched serving loop and the training loop."""

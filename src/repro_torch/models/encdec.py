@@ -25,7 +25,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as ll
 from repro_torch.models.params import PDef, check_tree, layer
-from repro_torch.models.transformer import LMHead, Params, _attn_pdefs
+from repro_torch.models.transformer import (LMHead, Params, _attn_pdefs,
+                                           remat_call)
 
 
 def _mlp_pdefs(cfg: ArchConfig, nl: int) -> dict:
@@ -97,11 +98,12 @@ def build_model(cfg: ArchConfig, tree: dict) -> EncDecLM:
 def encode(model: EncDecLM, cfg: ArchConfig, frames: torch.Tensor,
            remat: bool = True) -> torch.Tensor:
     """frames (B, F, D) stub embeddings -> encoder memory (B, F, D);
-    ``remat`` has no effect without gradients."""
+    ``remat`` recomputes each layer in the backward pass."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device)
+    body = remat_call(_encoder_layer, remat, model)
     for lp in model.encoder:
-        x = _encoder_layer(cfg, lp, x, positions)
+        x = body(cfg, lp, x, positions)
     return ll.rmsnorm(x, model.enc_final_norm, cfg.norm_eps)
 
 
@@ -144,15 +146,17 @@ def encdec_forward(model: EncDecLM, cfg: ArchConfig, tokens: torch.Tensor,
                    frames: torch.Tensor, remat: bool = True,
                    last_only: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced prefill forward: (logits, aux loss 0)."""
+    """Teacher-forced forward (training, prefill): (logits, aux loss 0);
+    ``remat`` recomputes each encoder and decoder layer in the backward
+    pass."""
     memory = encode(model, cfg, frames, remat=remat)
     x = ll.embed(model.embed, tokens)
     L = x.shape[1]
     positions = torch.arange(L, device=x.device)
     kv_chunk = 1024 if L >= 1024 else L
+    body = remat_call(_decoder_layer, remat, model)
     for lp in model.decoder:
-        x, _ = _decoder_layer(cfg, lp, x, positions, memory,
-                              kv_chunk=kv_chunk)
+        x, _ = body(cfg, lp, x, positions, memory, kv_chunk=kv_chunk)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

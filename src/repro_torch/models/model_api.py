@@ -1,20 +1,24 @@
 """Model API over every family (dense, moe, vlm, audio encoder-decoder,
-ssm, hybrid), one entry point per serving stage as in the JAX package's
+ssm, hybrid), one entry point per lifecycle stage as in the JAX package's
 ``models/model_api.py``:
 
-* :func:`pdefs` / :func:`init_params` / :func:`build_model` /
-  :func:`n_params` / :func:`n_active_params` — the parameter tree
-  (declarative ``PDef``) and the model holding it;
-* :func:`forward` — full-sequence forward (prefill), with the modality
-  stubs' ``patches`` (vlm) and ``frames`` (audio);
+* :func:`pdefs` / :func:`init_params` / :func:`param_shapes` /
+  :func:`build_model` / :func:`n_params` / :func:`n_active_params` — the
+  parameter tree (declarative ``PDef``), the model holding it, and its
+  shapes as :class:`TensorSpec`s;
+* :func:`forward` — full-sequence forward (training, prefill), with the
+  modality stubs' ``patches`` (vlm) and ``frames`` (audio);
   ``logits_last_only=True`` is the serving prefill;
+* :func:`loss_fn` — next-token cross-entropy (+ MoE aux loss);
 * :func:`cache_shapes` / :func:`init_cache` — the decode state;
 * :func:`decode_step` — one token against the cache (updated in place);
-* :func:`make_batch` — a random batch of one shape cell.
+* :func:`batch_shapes` / :func:`make_batch` — one shape cell's inputs, as
+  specs or drawn at random.
 
 Every entry point that makes tensors runs on the card unless the caller
-passes ``device="cpu"``.  The training entry points (``loss_fn``,
-``param_shapes``, ``batch_shapes``) are not ported yet.
+passes ``device="cpu"``.  Parameters do not require gradients until the
+caller turns them on (``model.requires_grad_(True)``, as the trainer
+does).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
-from repro_torch.models.params import materialize
+from repro_torch.models.params import leaves, materialize
 from repro_torch.models.params import n_params as _n_params
 from repro_torch.models.ssm import mamba_dims
 
@@ -68,6 +72,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return model if dtype == torch.float32 else model.to(dtype)
 
 
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree (stacked shapes) as
+    :class:`TensorSpec`s."""
+    out: dict = {}
+    for path, d in leaves(pdefs(cfg)):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = TensorSpec(tuple(d.shape), d.dtype)
+    return out
+
+
 def n_params(cfg: ArchConfig) -> int:
     return _n_params(pdefs(cfg))
 
@@ -91,8 +107,10 @@ def forward(params: nn.Module, cfg: ArchConfig,
     """Returns (logits (B, L, V) float32, aux_loss scalar).  For vlm the
     logits cover only the text positions (the patch prefix stripped).
     ``logits_last_only`` (serving prefill) slices the hidden state to the
-    final position before the unembedding.  ``remat`` is accepted and has
-    no effect without gradients."""
+    final position before the unembedding.  ``remat``: with grad enabled,
+    each layer (a hybrid's super-block) is recomputed in the backward pass
+    instead of keeping its activations, as the reference's
+    ``jax.checkpoint``."""
     if cfg.is_encdec:
         return ed.encdec_forward(params, cfg, batch["tokens"],
                                  batch["frames"], remat=remat,
@@ -111,6 +129,28 @@ def forward(params: nn.Module, cfg: ArchConfig,
             and not logits_last_only):
         logits = logits[:, patches.shape[1]:]
     return logits, aux
+
+
+def loss_fn(params: nn.Module, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE over ``labels`` (already shifted by the data
+    pipeline), the padded vocabulary's columns masked out of the partition
+    function with -1e30, plus ``aux_weight`` times the MoE aux loss.
+    Returns (loss, {"loss", "ce", "aux"})."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    labels = batch["labels"].long()
+    logits = logits.float()
+    if cfg.vocab_padded != cfg.vocab:
+        pad_mask = torch.arange(cfg.vocab_padded,
+                                device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad_mask, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    loss = ce + aux_weight * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -177,32 +217,42 @@ def decode_step(params: nn.Module, cfg: ArchConfig, cache: dict,
 # ---------------------------------------------------------------------------
 # Batches
 # ---------------------------------------------------------------------------
+def batch_shapes(cfg: ArchConfig, cell: ShapeCell
+                 ) -> Dict[str, TensorSpec]:
+    """Model inputs for one cell, in the reference's key order: kind
+    "decode" gives tokens (B, 1) and pos (); "train" tokens and labels
+    (B, L); "prefill" tokens; then vlm's ``patches`` (B, n_patches, D) and
+    audio's ``frames`` (B, enc_frames, D) in float32."""
+    B, L = cell.global_batch, cell.seq_len
+    i32 = torch.int32
+    if cell.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), i32),
+                "pos": TensorSpec((), i32)}
+    spec = {"tokens": TensorSpec((B, L), i32)}
+    if cell.kind == "train":
+        spec["labels"] = TensorSpec((B, L), i32)
+    if cfg.family == "vlm":
+        spec["patches"] = TensorSpec((B, cfg.n_patches, cfg.d_model),
+                                     torch.float32)
+    if cfg.is_encdec:
+        spec["frames"] = TensorSpec((B, cfg.enc_frames, cfg.d_model),
+                                    torch.float32)
+    return spec
+
+
 def make_batch(cfg: ArchConfig, cell: ShapeCell, rng: np.random.Generator,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """A random batch of one cell, drawn with numpy in the JAX package's
-    key order (its ``batch_shapes``), so that one seed gives both packages
-    the same batch: kind "decode" gives tokens (B, 1) and pos (0); "train"
-    tokens and labels (B, L); "prefill" tokens; then vlm's ``patches``
-    (B, n_patches, D) and audio's ``frames`` (B, enc_frames, D), standard
-    normal float32."""
+    """A random batch of one cell, drawn with numpy in the order of
+    :func:`batch_shapes`, so that one seed gives both packages the same
+    batch: tokens and labels below ``vocab`` (int64), ``pos`` 0, and the
+    float inputs standard normal float32."""
     device = resolve_device(device)
-    B, L = cell.global_batch, cell.seq_len
-
-    def ints(shape, hi):
-        return torch.from_numpy(np.asarray(rng.integers(
-            0, hi, size=shape, dtype=np.int64))).to(device)
-
-    def normal(shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(device)
-
-    if cell.kind == "decode":
-        return {"tokens": ints((B, 1), cfg.vocab), "pos": ints((), 1)}
-    out = {"tokens": ints((B, L), cfg.vocab)}
-    if cell.kind == "train":
-        out["labels"] = ints((B, L), cfg.vocab)
-    if cfg.family == "vlm":
-        out["patches"] = normal((B, cfg.n_patches, cfg.d_model))
-    if cfg.is_encdec:
-        out["frames"] = normal((B, cfg.enc_frames, cfg.d_model))
+    out = {}
+    for k, s in batch_shapes(cfg, cell).items():
+        if s.dtype == torch.int32:
+            hi = cfg.vocab if k in ("tokens", "labels") else 1
+            a = np.asarray(rng.integers(0, hi, size=s.shape, dtype=np.int64))
+        else:
+            a = rng.standard_normal(s.shape).astype(np.float32)
+        out[k] = torch.from_numpy(a).to(device)
     return out

@@ -53,6 +53,27 @@ def check_tree(arch_id: str, want, got) -> None:
                              f"{tuple(got[path].shape)}, expected {d.shape}")
 
 
+def split_name(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """A model parameter's name (``layers.3.attn.wq``) as its key path in
+    the JAX package's stacked tree (``("layers", "attn", "wq")``) and its
+    index on the stacked axes it was unstacked from (``(3,)``)."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def keystr(path: Tuple[str, ...]) -> str:
+    """A path of dict keys as ``jax.tree_util.keystr`` writes it:
+    ``['layers']['attn']['wq']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def ref_keystr(name: str) -> str:
+    """The key path, in the JAX package's stacked tree, of the model
+    parameter ``name``."""
+    return keystr(split_name(name)[0])
+
+
 def layer(tree, *index):
     """The tree of one stacked layer: every leaf indexed by ``index`` on
     its leading axes (views, not copies)."""

@@ -6,9 +6,11 @@ Parameters are declared with the JAX package's tree (:func:`decoder_pdefs`,
 stacked per layer) and held in ``nn.Module``s: each layer is a module of
 its own and the stacks are ``nn.ModuleList``s, walked by Python loops where
 the JAX package scans (:func:`build_model` unstacks a tree; a MoE layer's
-expert stacks (E, ...) stay whole).  Parameters do not require gradients:
-training is not ported yet.  The encoder-decoder family is
-``models/encdec.py``.
+expert stacks (E, ...) stay whole).  Parameters do not require gradients
+until the caller turns them on (``model.requires_grad_(True)``, as the
+trainer does); with grad enabled, ``remat=True`` recomputes each layer
+body in the backward pass (:func:`remat_call`, the reference's
+``jax.checkpoint``).  The encoder-decoder family is ``models/encdec.py``.
 
 Window dispatch.  The JAX package scans the dense stack over
 :func:`layer_windows`' array, so every dense, MoE and VLM layer sees a
@@ -20,11 +22,13 @@ chunk scan, as in the JAX package.  Both compute the same function.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as ll
@@ -282,6 +286,17 @@ def build_model(cfg: ArchConfig, tree: dict) -> nn.Module:
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+def remat_call(fn, remat: bool, model: nn.Module):
+    """``fn``, recomputed in the backward pass instead of keeping its
+    activations (``torch.utils.checkpoint``, non-reentrant) when ``remat``,
+    grad is enabled and a parameter of ``model`` requires grad; ``fn``
+    itself otherwise (a serving forward runs as it did)."""
+    if remat and torch.is_grad_enabled() and any(
+            p.requires_grad for p in model.parameters()):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
+
+
 def _zero(device=None):
     return torch.zeros((), dtype=torch.float32, device=device)
 
@@ -315,7 +330,8 @@ def dense_forward(model: DenseLM, cfg: ArchConfig, tokens: torch.Tensor, *,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward for dense / moe / vlm (vlm: the projected
     ``patches`` (B, P, D) before the tokens).  Returns (logits, the mean of
-    the layers' aux losses); ``remat`` has no effect without gradients."""
+    the layers' aux losses); ``remat`` recomputes each layer in the
+    backward pass."""
     x = ll.embed(model.embed, tokens)
     if cfg.family == "vlm":
         if patches is None:
@@ -326,9 +342,9 @@ def dense_forward(model: DenseLM, cfg: ArchConfig, tokens: torch.Tensor, *,
     positions = torch.arange(L, device=x.device)
     kv_chunk = 1024 if L >= 1024 else L
     auxs = []
+    body = remat_call(_attn_mlp_layer, remat, model)
     for lp in model.layers:
-        x, aux, _ = _attn_mlp_layer(cfg, lp, x, positions, lp.window,
-                                    kv_chunk=kv_chunk)
+        x, aux, _ = body(cfg, lp, x, positions, lp.window, kv_chunk=kv_chunk)
         auxs.append(aux)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if last_only:
@@ -357,10 +373,12 @@ def dense_decode_step(model: DenseLM, cfg: ArchConfig, cache: dict,
 def ssm_forward(model: Mamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
                 remat: bool = True, last_only: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward; ``remat`` has no effect without gradients."""
+    """Full-sequence forward; ``remat`` recomputes each layer in the
+    backward pass."""
     x = ll.embed(model.embed, tokens)
+    body = remat_call(_mamba_apply, remat, model)
     for lp in model.layers:
-        x, _ = _mamba_apply(cfg, lp, x)
+        x, _ = body(cfg, lp, x)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -401,16 +419,25 @@ def _mamba_apply(cfg, lp, x, cache=None):
 def hybrid_forward(model: Zamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
                    remat: bool = True, last_only: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward; ``remat`` has no effect without gradients."""
+    """Full-sequence forward; ``remat`` recomputes each super-block (the
+    shared attention block and its Mamba-2 layers) in the backward pass,
+    as the reference's checkpointed scan body; the tail is not
+    recomputed."""
     x = ll.embed(model.embed, tokens)
     L = x.shape[1]
     positions = torch.arange(L, device=x.device)
     kv_chunk = 1024 if L >= 1024 else L
-    for blocks in model.mamba_super:
+
+    def super_body(x, blocks):
         x, _ = _shared_attn_apply(cfg, model.shared_attn, x, positions,
                                   kv_chunk=kv_chunk)
         for lp in blocks:
             x, _ = _mamba_apply(cfg, lp, x)
+        return x
+
+    body = remat_call(super_body, remat, model)
+    for blocks in model.mamba_super:
+        x = body(x, blocks)
     for lp in model.mamba_tail:
         x, _ = _mamba_apply(cfg, lp, x)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)

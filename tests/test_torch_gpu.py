@@ -1280,3 +1280,124 @@ def test_net_build_host_defaults_to_the_card(cuda, stores, tmp_path):
         assert [ex.device for ex in h.fleet.replicas.execs] == [cuda, cuda]
     finally:
         h.stop()
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (select with ``-k train``)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,L,H,KV,hd,softcap", [
+    (1, 256, 4, 4, 64, 0.0),
+    (2, 256, 8, 2, 64, 20.0),
+    (1, 256, 2, 1, 128, 0.0),
+    (2, 2048, 36, 36, 64, 0.0)])        # MiniCPM-2B's training shape
+def test_train_flash_function_gradients_equal_plain(cuda, B, L, H, KV, hd,
+                                                    softcap):
+    """With grad enabled K3's wrapper launches the kernel (its output is
+    the kernel's) and its gradients are the plain version's, which its
+    backward recomputes and differentiates: equal bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(L + H + hd)
+    q = _randn(gen, (B, L, H, hd), cuda)
+    k, v = (_randn(gen, (B, L, KV, hd), cuda) for _ in range(2))
+    go = _randn(gen, (B, L, H, hd), cuda)
+    blocks = dict(Bq=math.gcd(L, 256), Bk=math.gcd(L, 256))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = k3.LAUNCHES["flash_attention"]
+    out = k3.flash_attention(*ins, causal=True, softcap=softcap, **blocks)
+    assert k3.LAUNCHES["flash_attention"] - before == 1
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        assert torch.equal(out, k3.flash_attention(q, k, v, causal=True,
+                                                   softcap=softcap,
+                                                   **blocks))
+    out.backward(go)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    k3.flash_attention_plain(*ref, causal=True, softcap=softcap,
+                             **blocks).backward(go)
+    for a, b in zip(ins, ref):
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("B,L,H,dh,N,Q", [
+    (1, 256, 2, 32, 16, 128),
+    (2, 2048, 24, 64, 128, 256)])       # Mamba2-130M's training shape
+def test_train_ssd_function_gradients_equal_plain(cuda, B, L, H, dh, N, Q):
+    """As above for K4: one kernel call in the forward pass, gradients
+    through y and the final state equal to the plain version's."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, B, L, H, dh, N)
+    gen = torch.Generator(cuda).manual_seed(5)
+    gy = _randn(gen, (B, L, H, dh), cuda)
+    gs = _randn(gen, (B, H, dh, N), cuda)
+    grads = []
+    for run in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm, D)]
+        before = k4.LAUNCHES["ssd_chunked"]
+        fn = k4.ssd_chunked if run == "kernel" else k4.ssd_chunked_plain
+        y, s = fn(*ins, Q=Q)
+        assert k4.LAUNCHES["ssd_chunked"] - before == (run == "kernel")
+        torch.autograd.backward((y, s), (gy, gs))
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_train_k3_gives_wq_wk_wv_gradients(cuda):
+    """Through K3 on the card, every layer's wq, wk and wv get nonzero
+    gradients (the kernel's output carries the graph back to them)."""
+    cfg = get_config("minicpm-2b").reduced()
+    model = model_api.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                                  cuda)
+    model.requires_grad_(True)
+    batch = {k: v.to(cuda) for k, v in _reduced_batch(cfg, 128).items()}
+    k3.reset_launches()
+    logits, _ = model_api.forward(model, cfg, batch, remat=False)
+    assert k3.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.logsumexp(logits, dim=-1).mean().backward()
+    for i, lp in enumerate(model.layers):
+        for name in ("wq", "wk", "wv"):
+            g = lp.attn[name].grad
+            assert g is not None and bool((g != 0).any()), (i, name)
+
+
+@pytest.mark.parametrize("arch,k3_calls,k4_calls", [
+    ("minicpm-2b", 8, 0), ("mamba2-130m", 0, 8)])
+def test_train_step_on_card_matches_cpu(cuda, arch, k3_calls, k4_calls):
+    """One train step (loss, backward through the kernels with their
+    recompute, AdamW) of a reduced model on the card against the same step
+    on the CPU from the same weights and batch: the loss within 2e-4
+    relative, each parameter's move within 1e-3 of its norm, both beyond
+    twice the CPU step's own spread under one-ulp moves of the weights
+    (tests/test_torch_train_steps.py: AdamW turns rounding-sized gradients
+    into moves of lr)."""
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(arch).reduced()
+    cpu = model_api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    raw = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                      global_batch=2, seed=0)))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=10))
+
+    def run(model, dev):
+        model = model.to(dev).requires_grad_(True)
+        before = {k: p.detach().cpu().clone()
+                  for k, p in model.named_parameters()}
+        state = init_opt_state(dict(model.named_parameters()))
+        _, _, m = step(model, state, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in raw.items()})
+        return float(m["loss"]), before, {
+            k: p.detach().cpu() for k, p in model.named_parameters()}
+    near = [run(_one_ulp(cpu, s), "cpu") for s in range(2)]
+    k3.reset_launches()
+    k4.reset_launches()
+    got_loss, start, got = run(copy.deepcopy(cpu), cuda)
+    assert k3.LAUNCHES["flash_attention"] == k3_calls
+    assert k4.LAUNCHES["ssd_chunked"] == k4_calls
+    want_loss, _, want = run(cpu, "cpu")
+    spread = max(abs(n[0] - want_loss) for n in near)
+    assert abs(got_loss - want_loss) <= 2e-4 * abs(want_loss) + 2 * spread
+    for k, w in want.items():
+        upd = max(float((w - start[k]).norm()), 1e-30)
+        rel = float((got[k] - w).norm()) / upd
+        sp = max(float((n[2][k] - w).norm()) for n in near) / upd
+        assert rel <= 1e-3 + 2 * sp, (k, rel, sp)

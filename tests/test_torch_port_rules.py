@@ -55,8 +55,12 @@ def test_importing_every_module_leaves_jax_and_repro_out():
         part for part in p.relative_to(PORT).with_suffix("").parts
         if part != "__init__")) for p in PORT.rglob("*.py")}
     assert want <= imported, sorted(want - imported)
-    for sub in ("configs", "models", "launch"):
+    for sub in ("configs", "models", "launch", "train"):
         assert any(m.startswith(f"repro_torch.{sub}.") for m in imported), sub
+    training = {"repro_torch.train.data", "repro_torch.train.optimizer",
+                "repro_torch.train.loop", "repro_torch.launch.train",
+                "repro_torch.io.checkpoint", "repro_torch.distributed.fault"}
+    assert training <= imported, sorted(training - imported)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
