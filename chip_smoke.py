@@ -142,7 +142,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    AdamW update's ms logged; and ``python -m repro_torch.launch.train
    --arch mamba2-130m --full --steps 2`` as its own process (from the
    phase's start until before MiniCPM-2B's full-depth timed parts), exit
-   0 and a falling loss.
+   0 and a falling loss;
+14. the distributed and launch tooling on a one-rank NCCL group: (a)
+   ``hierarchical_psum``, ``chunked_psum`` and ``compressed_pod_psum``
+   over a (1, 1, 1) ("pod", "data", "model") mesh on MiniCPM-2B's
+   full-width float32 trees (the embedding, then one layer): the first
+   two bit for bit, the int8 one within half a step with its error state
+   exact, each timed, the NCCL kernels of a traced call listed; (b)
+   ``moe_block_a2a`` at OLMoE-1B-7B's width (B = 2, L = 2048) against
+   ``moe_block`` on the same weights, neither dropping (per token within
+   1e-5, aux within 1e-6); (c) GPipe over a ("stage",) mesh with
+   MiniCPM-2B's 40 layers through K3 as the stage, 2 micro-batches of (1,
+   2048): against the layers micro-batch by micro-batch, and at one layer
+   against B = 2 at once (outputs per token and every gradient within
+   2e-4, no zero wq/wk/wv gradient, K3's launches counted), with the B = 2
+   forward's divergence at each depth logged; (d) the cost counter's flops
+   on the 40 layers' forward against ``FlopCounterMode``'s on the plain
+   version (within 1%); (e) ``python -m repro_torch.launch.dryrun`` of
+   minicpm-2b x decode_32k as its own process (the card hidden) from the
+   phase's start, exit 0 with status ok, and the roofline report's row.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs a CUDA card: without
@@ -3396,6 +3414,392 @@ def run_training_phase(seed, dev, card, tmp, k3_regs):
     return record, sum(k3_launches), k4_launches
 
 
+# -- phase 14: distributed and launch tooling ---------------------------------
+# OLMoE-1B-7B's MoE layer at full width (phase 14 (b)): B, L; capacity
+# factors that drop nothing (the dense block: C = 4096 slots an expert, all
+# of T; the all-to-all's per-expert Ce = 4608 >= T)
+A2A_B, A2A_L, A2A_CF, DENSE_CF = 2, 2048, 3.0, 8.0
+# MoE output per token and aux against the dense block (phase 14 (b))
+A2A_TOL, AUX_TOL = 1e-5, 1e-6
+# GPipe against the plain stack (phase 14 (c)): phase 13's limits
+PIPE_TOL = 2e-4
+# the cost counter's flops against FlopCounterMode's (phase 14 (d))
+FLOP_TOL = 0.01
+# the dry run's own process (phase 14 (e)): bound on its run
+DRYRUN_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# The dry run's cell on the card's machine (phase 14 (e)): a decode cell,
+# since minicpm-2b x train_4k took 66.8 s there (more than the 40 s the
+# phase allows it; PERF.md section 6), its prefill_32k 58.2 s.
+DRYRUN_CELL = ("minicpm-2b", "decode_32k")
+
+
+def start_dryrun(out: Path):
+    """``python -m repro_torch.launch.dryrun --arch minicpm-2b --shape
+    decode_32k --mesh single`` as its own process, with the card hidden
+    (the dry run runs on placeholder ranks and touches no device)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    arch, shape = DRYRUN_CELL
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(out)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def wait_dryrun(proc, out: Path, t_start: float, card: str) -> float:
+    """Check (e): the dry run of DRYRUN_CELL exits 0 with ``status:
+    "ok"``, and the roofline report over its output prints its row.
+    Returns its wall time."""
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, "the dry run ended within its time")
+    secs = time.perf_counter() - t_start
+    lines = [ln for ln in text.splitlines() if "[dryrun]" in ln]
+    log(f"dry run (its own process, {secs:.1f} s from the phase's start): "
+        f"exit {proc.returncode}; " + " | ".join(lines) + f" [{card}]")
+    arch, shape = DRYRUN_CELL
+    check(proc.returncode == 0, f"python -m repro_torch.launch.dryrun --arch "
+          f"{arch} --shape {shape} --mesh single exits 0")
+    rec = json.loads((out / f"{arch}__{shape}__single.json").read_text())
+    check(rec["status"] == "ok", f"dry run: status ok ({rec.get('error')})")
+    log(f"dry run record: {rec['flops_per_device']:.6e} flops, "
+        f"{rec['bytes_per_device']:.6e} bytes, collectives "
+        f"{json.dumps(rec['collective_bytes'])}, memory "
+        f"{json.dumps(rec['memory'])}, terms {json.dumps(rec['terms'])} "
+        f"(counts over H100 SXM constants, not measurements)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+         str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    rows = [ln for ln in roof.stdout.splitlines()
+            if ln.startswith(f"| {arch} | {shape} | single")]
+    log("roofline: " + " ".join(rows))
+    check(roof.returncode == 0 and len(rows) == 1, "python -m "
+          "repro_torch.launch.roofline prints the dry run's row")
+    return secs
+
+
+def nccl_kernels(prof) -> str:
+    names = sorted({e.key for e in prof.key_averages()
+                    if "nccl" in e.key.lower()})
+    return ", ".join(names) or "none seen"
+
+
+def run_collectives_check(dev, card):
+    """Check (a): the three collectives over a one-rank (1, 1, 1) ("pod",
+    "data", "model") mesh on MiniCPM-2B's full-width float32 trees."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import collectives as co
+    from repro_torch.models import model_api
+    from repro_torch.models.params import leaves
+    mesh = init_device_mesh(dev.type, (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    cfg = get_config("minicpm-2b")
+    g = torch.Generator(dev).manual_seed(1)
+    pd = model_api.pdefs(cfg)
+    layer = {".".join(p): torch.randn(d.shape[1:], generator=g, device=dev)
+             for p, d in leaves(pd["layers"])}
+    trees = {"embedding": {"embed": torch.randn(pd["embed"].shape,
+                                                generator=g, device=dev)},
+             "one layer": layer}
+    for name, tree in trees.items():
+        nbytes = sum(4 * t.numel() for t in tree.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hier = co.hierarchical_psum(tree, mesh)
+            torch.cuda.synchronize()
+        check(all(torch.equal(hier[k], v) for k, v in tree.items()),
+              f"hierarchical_psum over one rank returns the {name} bit for "
+              f"bit")
+        ms_h = cuda_ms(lambda: co.hierarchical_psum(tree, mesh), 3, 1)
+        ch = co.chunked_psum(tree, mesh, ("pod", "data"))
+        check(all(torch.equal(ch[k], v) for k, v in tree.items()),
+              f"chunked_psum over one rank returns the {name} bit for bit")
+        ms_c = cuda_ms(lambda: co.chunked_psum(tree, mesh, ("pod", "data")),
+                       3, 1)
+        err0 = co.init_error_state(tree, mesh)
+        red, err = co.compressed_pod_psum(tree, mesh, err0)
+        worst = 0.0
+        for k, v in tree.items():
+            q, s = co.quantize_int8(v.reshape(-1))
+            half = float(s) / 2        # (amax + 1e-12) / 254
+            gap = float((red[k] - v).abs().max())
+            worst = max(worst, gap / half)
+            # float32 rounds x / scale before the rounding to an integer,
+            # and q * scale after it: each moves the result by up to an
+            # ulp of 127 (2**-17 of a step), so the limit has 2**-14 of
+            # half a step beyond it (a wrong integer costs a whole step)
+            check(gap <= half * (1 + 2 ** -14), f"compressed_pod_psum: "
+                  f"{name} {k} within half an int8 step ({gap} > {half})")
+            check(torch.equal(err[k], v.reshape(-1)
+                              - co.dequantize_int8(q, s)),
+                  f"compressed_pod_psum: {name} {k}'s error state is carry "
+                  f"- dequantised exactly")
+        ms_q = cuda_ms(lambda: co.compressed_pod_psum(tree, mesh, err0), 3,
+                       1)
+        log(f"collectives, {name} ({len(tree)} leaves, {nbytes} B float32, "
+            f"one NCCL rank): hierarchical_psum {ms_h:.3f} ms, chunked_psum "
+            f"{ms_c:.3f} ms, compressed_pod_psum {ms_q:.3f} ms (its largest "
+            f"gap {worst:.4f} of half a step); NCCL kernels traced: "
+            f"{nccl_kernels(prof)} [{card}]")
+        del hier, ch, red, err, err0
+    del trees, layer
+    torch.cuda.empty_cache()
+
+
+def run_moe_a2a_check(seed, dev, card):
+    """Check (b): ``moe_block_a2a`` at OLMoE-1B-7B's width on a one-rank
+    (1, 1) ("data", "model") mesh against ``models/moe.py::moe_block``,
+    same weights, neither dropping a pair."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.moe_a2a import moe_block_a2a
+    from repro_torch.models.moe import moe_block
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_config("olmoe-1b-7b")
+    D, E, F, K = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.top_k
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) / math.sqrt(
+            shape[-2])
+    p = {"router": w(D, E), "w_gate": w(E, D, F), "w_in": w(E, D, F),
+         "w_out": w(E, F, D)}
+    x = torch.randn(A2A_B, A2A_L, D, generator=g, device=dev)
+    with torch.no_grad():
+        def a2a():
+            return moe_block_a2a(p, x, mesh, n_experts=E, top_k=K,
+                                 capacity_factor=A2A_CF)
+
+        def dense():
+            return moe_block(p, x, n_experts=E, top_k=K,
+                             capacity_factor=DENSE_CF)
+        (y, aux), (want, want_aux) = a2a(), dense()
+        ms, ms_d = cuda_ms(a2a, 3, 1), cuda_ms(dense, 3, 1)
+        # the dense block dropped nothing: every (token, k) pair's expert
+        # took at most its capacity
+        idx = torch.topk(torch.softmax((x.reshape(-1, D) @ p["router"]),
+                                       -1), K).indices
+        most = int(torch.bincount(idx.reshape(-1), minlength=E).max())
+    C = math.ceil(A2A_B * A2A_L * K / E * DENSE_CF)
+    rel = float(row_rel(y.to_local(), want).max())
+    daux = abs(float(aux) - float(want_aux))
+    log(f"moe_block_a2a, OLMoE-1B-7B width (d {D}, {E} experts of d_ff {F}, "
+        f"top-{K}; B = {A2A_B}, L = {A2A_L}; one NCCL rank): {ms:.3f} ms "
+        f"against the dense block's {ms_d:.3f} ms; per token at most {rel} "
+        f"relative L2 (limit {A2A_TOL}); aux {float(aux)} vs "
+        f"{float(want_aux)} ({daux}; limit {AUX_TOL}); the busiest expert "
+        f"took {most} pairs of the dense block's {C} slots [{card}]")
+    check(most <= C, "moe_block (dense) dropped no pair")
+    check(rel <= A2A_TOL and daux <= AUX_TOL, "moe_block_a2a within its "
+          "limits of moe_block")
+    del p, x, y, want
+    torch.cuda.empty_cache()
+
+
+class LayerStack(torch.nn.Module):
+    """Some of a dense model's layers as one module (remat on, as the
+    trainer runs them): (B, L, D) -> (B, L, D)."""
+
+    def __init__(self, model, layers=None):
+        super().__init__()
+        self.cfg = model.cfg
+        self.layers = model.layers if layers is None else layers
+
+    def forward(self, x, taps=None):
+        from repro_torch.models.transformer import _attn_mlp_layer, remat_call
+        positions = torch.arange(x.shape[1], device=x.device)
+        body = remat_call(_attn_mlp_layer, True, self)
+        for i, lp in enumerate(self.layers):
+            x, _, _ = body(self.cfg, lp, x, positions, lp.window,
+                           kv_chunk=1024)
+            if taps is not None:
+                taps.append(x)
+        return x
+
+
+def pipeline_against(stack, mesh, x, cot, batched: bool):
+    """GPipe (one stage: ``stack``; x (nm, 1, L, D), a micro-batch each)
+    against ``stack`` without the pipeline: on the whole batch at once
+    (``batched``) or micro-batch by micro-batch.  Both backpropagate
+    sum(y * cot).  Returns the largest per-token output difference, the
+    largest parameter gradient difference (and its name) and the input
+    gradient's, in relative L2, the pipelined step's K3 launches and both
+    steps' seconds."""
+    from torch.func import functional_call
+    from repro_torch.distributed.pipeline import make_pipelined_apply
+    from repro_torch.kernels import flash_attention as k3
+    nm, _, L, D = x.shape
+    stack.requires_grad_(True)
+    xr = x.reshape(nm, L, D).clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if batched:
+        want = stack(xr)
+        (want * cot).sum().backward()
+    else:
+        want = []
+        for m in range(nm):
+            want.append(stack(xr[m:m + 1]))
+            (want[-1] * cot[m:m + 1]).sum().backward()
+        want = torch.cat(want)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    want_g = {k: p.grad.clone() for k, p in stack.named_parameters()}
+    stack.zero_grad(set_to_none=True)
+
+    apply = make_pipelined_apply(
+        lambda params, z, s: functional_call(stack, params, (z,)), mesh)
+    xp = x.clone().requires_grad_(True)
+    k3.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = apply({k: p[None] for k, p in stack.named_parameters()}, xp)
+    (y.reshape(nm, L, D) * cot).sum().backward()
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    n_k3 = k3.LAUNCHES["flash_attention"]
+    out_rel = float(row_rel(y.detach().reshape(nm, L, D),
+                            want.detach()).max())
+    got_g = {k: p.grad for k, p in stack.named_parameters()}
+    worst = max((rel_l2(got_g[k], want_g[k]), k) for k in want_g)
+    gx = rel_l2(xp.grad.reshape(xr.grad.shape), xr.grad)
+    zero = [k for k in got_g if k.split(".")[-1] in ("wq", "wk", "wv")
+            and not bool(got_g[k].abs().max() > 0)]
+    stack.zero_grad(set_to_none=True)
+    stack.requires_grad_(False)
+    return out_rel, worst, gx, zero, n_k3, t_pipe, t_plain
+
+
+def run_pipeline_check(seed, dev, card):
+    """Checks (c) and (d): ``make_pipelined_apply`` over a one-rank
+    ("stage",) mesh with MiniCPM-2B's layers at full width as the stage
+    (through K3) and 2 micro-batches of (1, 2048).  At all 40 layers it is
+    held against the same layers run micro-batch by micro-batch (the same
+    products: what the pipeline schedules); at B = 2 in one batch only
+    at one layer, since the reference's init makes the stack amplify
+    float32 rounding layer by layer (phases 12 and 13), which the log
+    shows: the B = 2 forward's divergence from the micro-batched one at
+    each depth.  Outputs per token and the gradients of sum(y * cot) for
+    every parameter and the input within PIPE_TOL, no zero wq/wk/wv
+    gradient.  Then (d): the cost counter around the 40 layers' forward at
+    B = 2 against FlopCounterMode on the same forward with K3's plain
+    version.  Returns K3's launches in the 40-layer pipelined step."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import cost_analysis
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("stage",))
+    cfg, model = make_model("minicpm-2b", seed, dev)
+    stack = LayerStack(model)
+    D = cfg.d_model
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    x = torch.randn(2, 1, PREFILL_L, D, generator=g, device=dev)
+    cot = torch.randn(2, PREFILL_L, D, generator=g, device=dev)
+    results = {}
+    for label, st, batched in (
+            (f"{cfg.n_layers} layers, micro-batch by micro-batch", stack,
+             False),
+            ("1 layer, B = 2 at once",
+             LayerStack(model, model.layers[:1]), True)):
+        r = pipeline_against(st, mesh, x, cot, batched)
+        results[label] = r
+        out_rel, worst, gx, zero, n_k3, t_pipe, t_plain = r
+        log(f"GPipe, one stage of MiniCPM-2B at full width through K3, 2 "
+            f"micro-batches of (1, {PREFILL_L}), against the {label} "
+            f"without it: outputs per token at most {out_rel}, parameter "
+            f"gradients at most {worst[0]} ({worst[1]}), the input's {gx} "
+            f"relative L2 (limit {PIPE_TOL}); zero wq/wk/wv gradients: "
+            f"{zero or 'none'}; K3 launches {n_k3}; a step {t_pipe:.3f} s "
+            f"pipelined, {t_plain:.3f} s not [{card}]")
+        check(out_rel <= PIPE_TOL and worst[0] <= PIPE_TOL
+              and gx <= PIPE_TOL, f"GPipe against the {label}: outputs and "
+              f"gradients within their limits")
+        check(not zero, "no zero wq/wk/wv gradient through the pipeline")
+        check(n_k3 > 0, "K3 launched in the pipelined step")
+    torch.cuda.empty_cache()
+
+    xb = x.reshape(2, PREFILL_L, D)
+    with torch.no_grad():
+        # the B = 2 forward against the micro-batched one, layer by layer
+        taps2, taps1 = [], [[], []]
+        stack(xb, taps2)
+        for m in range(2):
+            stack(xb[m:m + 1], taps1[m])
+        drift = [float(row_rel(taps2[i], torch.cat([taps1[0][i],
+                                                    taps1[1][i]])).max())
+                 for i in range(cfg.n_layers)]
+        del taps2, taps1
+        log("B = 2 in one batch against micro-batch by micro-batch, the "
+            "largest per-token difference after layer " + ", ".join(
+                f"{i + 1}: {drift[i]:.3g}" for i in (0, 1, 3, 7, 15, 39)
+                if i < cfg.n_layers) + f" [{card}]")
+        # (d) the cost counter on the forward
+        with cost_analysis.CostCounter() as counter:
+            stack(xb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stack(xb)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with kernel_impl("plain"), FlopCounterMode(display=False) as fc:
+            stack(xb)
+    got, want_f = counter.flops, fc.get_total_flops()
+    log(f"cost counter on MiniCPM-2B's {cfg.n_layers} layers' forward (B = "
+        f"2, L = {PREFILL_L}) through K3: {got / 1e12:.4f} TFLOP counted "
+        f"(K3 reported {counter.kernel_calls}), FlopCounterMode on the plain "
+        f"version {want_f / 1e12:.4f} TFLOP; {counter.bytes:.6e} bytes; "
+        f"the forward measured {secs:.3f} s, {got / secs / 1e12:.2f} "
+        f"TFLOP/s [{card}]")
+    check(abs(got - want_f) <= FLOP_TOL * want_f, "cost counter flops "
+          f"within {FLOP_TOL:.0%} of FlopCounterMode's")
+    del model, stack
+    torch.cuda.empty_cache()
+    return results[f"{cfg.n_layers} layers, micro-batch by micro-batch"][4]
+
+
+def run_distributed_phase(seed, dev, card, tmp):
+    """Phase 14: a one-rank NCCL group on the card for the collectives
+    (a), the MoE all-to-all (b), GPipe (c) and the cost counter (d); the
+    dry run (e) as its own process from the phase's start.  Destroys the
+    group at the end.  Returns K3's launches in (c)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    out = tmp / "dryrun"
+    dry = start_dryrun(out)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, device_id=dev)
+    try:
+        run_collectives_check(dev, card)
+        run_moe_a2a_check(seed, dev, card)
+        n_k3 = run_pipeline_check(seed, dev, card)
+        wait_dryrun(dry, out, t0, card)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+        dist.destroy_process_group()
+    log(f"distributed: {time.perf_counter() - t0:.1f} s [{card}]")
+    return n_k3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3487,6 +3891,9 @@ def main() -> int:
             "training", run_training_phase, args.seed, dev, card, tmp,
             k3_regs)
         records["K3 minicpm-2b"] = train_record
+        torch.cuda.empty_cache()
+        k3_pipeline = phase("distributed", run_distributed_phase, args.seed,
+                            dev, card, tmp)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3559,6 +3966,9 @@ def main() -> int:
     for key in ("K3", "K3 yi-9b", "K3 minicpm-2b"):
         by_key[key]["launches_train"] = k3_train
     by_key["K4"]["launches_train"] = k4_train
+    # K3's launches in phase 14's pipelined MiniCPM-2B step (forward and
+    # backward of 2 micro-batches)
+    by_key["K3 minicpm-2b"]["launches_pipeline"] = k3_pipeline
     # K3's backward (its plain version recomputed) at MiniCPM-2B's shape
     by_key["K3 minicpm-2b"]["backward_ms"] = records["K3 minicpm-2b"][
         "backward_ms"]

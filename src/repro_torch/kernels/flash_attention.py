@@ -7,11 +7,14 @@ plain PyTorch version beside it.
 H = KV * G, causal or not, an optional tanh softcap, scale 1/sqrt(hd),
 online softmax in float32, output in q's dtype.  It launches the kernel for
 tensors on the card (counted in ``LAUNCHES``) and runs the plain version for
-tensors on the CPU; anything else raises.  With grad enabled and an input
-that requires grad, a card call goes through :class:`FlashAttentionFn`:
-its forward launches the kernel and keeps only q, k and v; its backward
-recomputes the plain version and differentiates it (the reference's
-kernel is forward-only, and its training runs its plain path).
+tensors on the CPU (or on the meta device, which the dry run's placeholder
+ranks use); anything else raises.  Each call is reported to an active
+``launch/cost_analysis.py`` counter as one fused call.  With grad enabled
+and an input that requires grad, a card call goes through
+:class:`FlashAttentionFn`: its forward launches the kernel and keeps only
+q, k and v; its backward recomputes the plain version and differentiates
+it (the reference's kernel is forward-only, and its training runs its
+plain path).
 
 :func:`attention_chunked` is the plain version: the online-softmax scan
 over key chunks written from the Pallas body, generalised to the cases the
@@ -28,6 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels._build import count_launch, library
+from repro_torch.launch import cost_analysis
 
 NEG_INF = -1e30
 # Kernel launches since the last reset_launches() (plain runs do not count).
@@ -59,10 +63,10 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ck = min(kv_chunk, S)
     qg = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Lq, KV, G, hd)
     qg = qg.permute(0, 2, 3, 1, 4)                       # (B, KV, G, Lq, hd)
-    acc = torch.zeros((B, KV, G, Lq, hd), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, KV, G, Lq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
+    # made like qg, so that a sharded q (a DTensor) gives sharded buffers
+    acc = torch.zeros_like(qg, memory_format=torch.contiguous_format)
+    m = torch.full_like(qg[..., 0], NEG_INF,
+                        memory_format=torch.contiguous_format)
     l = torch.zeros_like(m)
     qpos = q_positions.to(q.device)[:, None]
     for c0 in range(0, S, ck):
@@ -137,18 +141,27 @@ def _launch(q, k, v, causal: bool, softcap: float) -> torch.Tensor:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
     count_launch(LAUNCHES, "flash_attention")
+    cost_analysis.report_kernel("flash_attention", flash_attention_plain,
+                                (q, k, v), out, causal=causal,
+                                softcap=softcap)
     return out
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K3 under autograd: the forward launches the kernel and saves only
-    its inputs; the backward recomputes :func:`flash_attention_plain` on
-    them with grad enabled and returns its gradients."""
+    """K3 under autograd: the forward launches the kernel (on meta tensors,
+    the dry run's placeholders for the card, it counts the plain version as
+    one fused call) and saves only its inputs; the backward recomputes
+    :func:`flash_attention_plain` on them with grad enabled and returns its
+    gradients."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, softcap: float, Bk: int):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, softcap, Bk)
+        if q.device.type == "meta":
+            return cost_analysis.fused("flash_attention",
+                                       flash_attention_plain, (q, k, v),
+                                       causal=causal, softcap=softcap, Bk=Bk)
         return _launch(q, k, v, causal, softcap)
 
     @staticmethod
@@ -174,12 +187,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block shape whatever they are; ``Bk`` is the key chunk of the plain
     version, and of the backward's recompute)."""
     _check(q, k, v, Bq, Bk)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
-                                     Bq=Bq, Bk=Bk)
-    if q.device.type != "cuda":
+    opts = dict(causal=causal, softcap=softcap, Bq=Bq, Bk=Bk)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if q.device.type == "cpu" or (q.device.type == "meta" and not grad):
+        return cost_analysis.fused("flash_attention", flash_attention_plain,
+                                   (q, k, v), **opts)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if grad:
         return FlashAttentionFn.apply(q, k, v, causal, float(softcap), Bk)
     return _launch(q, k, v, causal, softcap)

@@ -8,13 +8,15 @@ plain PyTorch version beside it.
 dh) in x's dtype and the final state (B, H, dh, N) in float32.  For
 tensors on the card it launches the kernel (four launches on the card a
 call, counted once in ``LAUNCHES``) with workspaces it allocates
-(:func:`workspace_shapes`); for tensors on the CPU it runs the plain
-version; anything else raises.  With grad enabled and an input that
-requires grad, a card call goes through :class:`SSDChunkedFn`: its forward
-launches the kernel and keeps only the inputs; its backward recomputes the
-plain version and differentiates it, through y and the final state (the
-reference's kernel is forward-only, and its training runs its plain
-path).
+(:func:`workspace_shapes`); for tensors on the CPU (or on the meta
+device, which the dry run's placeholder ranks use) it runs the plain
+version; anything else raises.  Each call is reported to an active
+``launch/cost_analysis.py`` counter as one fused call.  With grad enabled
+and an input that requires grad, a card call goes through
+:class:`SSDChunkedFn`: its forward launches the kernel and keeps only the
+inputs; its backward recomputes the plain version and differentiates it,
+through y and the final state (the reference's kernel is forward-only,
+and its training runs its plain path).
 
 :func:`ssd_scan` is the plain version, written from the Pallas body: per
 chunk of Q rows the decay ``exp(segsum(dt*A))`` (never exponentiated above
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._build import count_launch, library
+from repro_torch.launch import cost_analysis
 
 # Kernel launches since the last reset_launches() (plain runs do not count).
 LAUNCHES = {"ssd_chunked": 0}
@@ -159,19 +162,25 @@ def _launch(x, dt, A, Bm, Cm, D, Q: int
     if err != 0:
         raise RuntimeError(f"SSD chunk kernel launch failed: CUDA error {err}")
     count_launch(LAUNCHES, "ssd_chunked")
+    cost_analysis.report_kernel("ssd_chunked", ssd_chunked_plain,
+                                (x, dt, A, Bm, Cm, D), (y, state), Q=Q)
     return y, state
 
 
 class SSDChunkedFn(torch.autograd.Function):
-    """K4 under autograd: the forward launches the kernel and saves only
-    its inputs; the backward recomputes :func:`ssd_chunked_plain` on them
-    with grad enabled and returns its gradients through y and the final
-    state."""
+    """K4 under autograd: the forward launches the kernel (on meta tensors,
+    the dry run's placeholders for the card, it counts the plain version as
+    one fused call) and saves only its inputs; the backward recomputes
+    :func:`ssd_chunked_plain` on them with grad enabled and returns its
+    gradients through y and the final state."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, Q: int):
         ctx.save_for_backward(x, dt, A, Bm, Cm, D)
         ctx.Q = Q
+        if x.device.type == "meta":
+            return cost_analysis.fused("ssd_chunked", ssd_chunked_plain,
+                                       (x, dt, A, Bm, Cm, D), Q=Q)
         return _launch(x, dt, A, Bm, Cm, D, Q)
 
     @staticmethod
@@ -192,11 +201,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, Q: int = 128
     """SSD scan with chunk length Q; returns (y (B, L, H, dh) in x's dtype,
     final state (B, H, dh, N) float32)."""
     _check(x, dt, A, Bm, Cm, D, Q)
-    if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, A, Bm, Cm, D, Q=Q)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     ins = (x, dt, A, Bm, Cm, D)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    if x.device.type == "cpu" or (x.device.type == "meta" and not grad):
+        return cost_analysis.fused("ssd_chunked", ssd_chunked_plain, ins,
+                                   Q=Q)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no kernel for device {x.device}")
+    if grad:
         return SSDChunkedFn.apply(*ins, Q)
     return _launch(*ins, Q)

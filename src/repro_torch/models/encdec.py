@@ -23,6 +23,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (ATTN_LOGICAL, MLP_LOGICAL,
+                                              gather_fsdp, shard_seq)
 from repro_torch.models import layers as ll
 from repro_torch.models.params import PDef, check_tree, layer
 from repro_torch.models.transformer import (LMHead, Params, _attn_pdefs,
@@ -110,28 +112,33 @@ def encode(model: EncDecLM, cfg: ArchConfig, frames: torch.Tensor,
 def _encoder_layer(cfg, lp, x, positions):
     """Bidirectional attention over the frames x (B, F, D), then the GELU
     MLP."""
+    attn = gather_fsdp(lp["attn"], ATTN_LOGICAL)
+    mlp = gather_fsdp(lp["mlp"], MLP_LOGICAL)
     h = ll.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    y, _ = ll.attention(lp["attn"], h, n_heads=cfg.n_heads,
+    y, _ = ll.attention(attn, h, n_heads=cfg.n_heads,
                         n_kv=cfg.n_kv_heads, hd=cfg.hd,
                         rope_theta=cfg.rope_theta, positions=positions,
                         causal=False, kv_chunk=min(1024, x.shape[1]))
     x = x + y
     h = ll.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + ll.gelu_mlp(lp["mlp"], h)
+    return x + ll.gelu_mlp(mlp, h)
 
 
 def _decoder_layer(cfg, lp, x, positions, memory, self_cache=None,
                    cross_cache=None, cache_pos=None, kv_chunk=1024):
     """Returns (x out, the self-attention cache)."""
+    self_attn = gather_fsdp(lp["self_attn"], ATTN_LOGICAL)
+    cross_attn = gather_fsdp(lp["cross_attn"], ATTN_LOGICAL)
+    mlp = gather_fsdp(lp["mlp"], MLP_LOGICAL)
     h = ll.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    y, new_self = ll.attention(lp["self_attn"], h, n_heads=cfg.n_heads,
+    y, new_self = ll.attention(self_attn, h, n_heads=cfg.n_heads,
                                n_kv=cfg.n_kv_heads, hd=cfg.hd,
                                rope_theta=cfg.rope_theta, positions=positions,
                                cache=self_cache, cache_pos=cache_pos,
                                kv_chunk=kv_chunk)
     x = x + y
     h = ll.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    y, _ = ll.attention(lp["cross_attn"], h, n_heads=cfg.n_heads,
+    y, _ = ll.attention(cross_attn, h, n_heads=cfg.n_heads,
                         n_kv=cfg.n_kv_heads, hd=cfg.hd,
                         rope_theta=cfg.rope_theta, positions=positions,
                         cache=cross_cache, xkv=memory, use_rope=False,
@@ -139,7 +146,7 @@ def _decoder_layer(cfg, lp, x, positions, memory, self_cache=None,
                         kv_chunk=1024)
     x = x + y
     h = ll.rmsnorm(x, lp["ln3"], cfg.norm_eps)
-    return x + ll.gelu_mlp(lp["mlp"], h), new_self
+    return x + ll.gelu_mlp(mlp, h), new_self
 
 
 def encdec_forward(model: EncDecLM, cfg: ArchConfig, tokens: torch.Tensor,
@@ -157,6 +164,7 @@ def encdec_forward(model: EncDecLM, cfg: ArchConfig, tokens: torch.Tensor,
     body = remat_call(_decoder_layer, remat, model)
     for lp in model.decoder:
         x, _ = body(cfg, lp, x, positions, memory, kv_chunk=kv_chunk)
+        x = shard_seq(x)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

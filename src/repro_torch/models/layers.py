@@ -3,9 +3,9 @@ window, softcap, KV cache), the gated MLP and the GELU MLP, as the JAX
 package's ``models/layers.py`` computes them.
 
 Parameters are read by name (``p["wq"]``) from a mapping or a module of the
-port's models.  The JAX package's ``shard(...)`` and ``gather_fsdp(...)``
-annotate arrays for a device mesh and do nothing on one device without one;
-this one-device port omits them.
+port's models.  ``shard(...)`` (``distributed/sharding.py``) annotates
+activations with the reference's logical names: it returns its input
+without a sharding context, and redistributes a DTensor under one.
 
 Attention is the online-softmax (flash) form.  Under the JAX package's
 kernel conditions (``Lq == S``, no window, no partly filled cache,
@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P, constrain, get_ctx, shard
 from repro_torch.kernels import flash_attention as k3
 
 NEG_INF = k3.NEG_INF
@@ -80,6 +81,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``s_valid`` are masked (decode with a partly filled cache)."""
     B, Lq, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
+    if KV != H and get_ctx() is not None:
+        q, k, v = _heads_for_dtensor(q, k, v)
+        KV = k.shape[2]
     if Lq > 1 and Lq == S and window == 0 and s_valid == S and Lq % 128 == 0:
         fn = (k3.flash_attention if _FLASH_IMPL == "kernel"
               else k3.flash_attention_plain)
@@ -112,6 +116,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 softcap=softcap, kv_chunk=kv_chunk)
 
 
+def _heads_for_dtensor(q, k, v):
+    """GQA under a sharding context (DTensors): splitting a sharded head
+    dim into (KV, G) groups fails where KV does not divide the model axis.
+    One query token (decode) gathers q's heads (a few KB); a sequence
+    repeats K and V to every head and places them as q where q splits
+    heads or head_dim (so that no key chunk moves), as K itself where q
+    splits the sequence.  Both give the same scores; a repeat's gradient
+    comes back in K's placement (its head dim whole)."""
+    ctx = get_ctx()
+    if q.shape[1] == 1:
+        return constrain(q, P(ctx.batch_axes, None, None, None),
+                         ctx.mesh), k, v
+    G = q.shape[2] // k.shape[2]
+    like = "act_bthd" if ctx.attn_q_axis in ("heads", "hd") else "kv_cache"
+    return q, *(shard(t.repeat_interleave(G, dim=2), like) for t in (k, v))
+
+
 def attention(p, x: torch.Tensor, *, n_heads: int, n_kv: int, hd: int,
               rope_theta: float, positions: torch.Tensor,
               cache: Optional[dict] = None, cache_pos: Optional[int] = None,
@@ -128,6 +149,7 @@ def attention(p, x: torch.Tensor, *, n_heads: int, n_kv: int, hd: int,
     q = torch.einsum("btd,dhk->bthk", x, p["wq"]).to(x.dtype)
     if use_rope:
         q = rope(q, positions, rope_theta)
+    q = shard(q, "act_bthd")
     if cache is not None and xkv is None and not cross_cached:
         k_new = torch.einsum("btd,dhk->bthk", src, p["wk"]).to(x.dtype)
         if use_rope:
@@ -149,26 +171,32 @@ def attention(p, x: torch.Tensor, *, n_heads: int, n_kv: int, hd: int,
             k = rope(k, k_pos, rope_theta)
         v = torch.einsum("btd,dhk->bthk", src, p["wv"]).to(x.dtype)
         s_valid = k.shape[1]
+    k = shard(k, "kv_cache")
+    v = shard(v, "kv_cache")
     out = flash_attention(q, k, v, q_positions=positions, s_valid=s_valid,
                           causal=causal and xkv is None and not cross_cached,
                           window=window, softcap=softcap, kv_chunk=kv_chunk)
     y = torch.einsum("bthk,hkd->btd", out, p["wo"]).to(x.dtype)
-    return y, cache
+    return shard(y, "act_btd"), cache
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
-    return (h.to(x.dtype) @ p["w_out"]).to(x.dtype)
+    h = shard(h.to(x.dtype), "act_btf")
+    return shard((h @ p["w_out"]).to(x.dtype), "act_btd")
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """The tanh-approximate GELU MLP (``jax.nn.gelu``'s default)."""
     h = F.gelu(x @ p["w_in"], approximate="tanh")
-    return (h.to(x.dtype) @ p["w_out"]).to(x.dtype)
+    h = shard(h.to(x.dtype), "act_btf")
+    return shard((h @ p["w_out"]).to(x.dtype), "act_btd")
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of ``table`` at ``tokens``: ``F.embedding``, the same bits
+    as ``table[tokens]``, and the gather DTensor shards on the vocab."""
+    return shard(F.embedding(tokens, table), "act_btd")
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,
@@ -176,4 +204,4 @@ def unembed(table: torch.Tensor, x: torch.Tensor,
     logits = (x @ table.T).float()
     if logit_softcap > 0.0:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
-    return logits
+    return shard(logits, "logits")

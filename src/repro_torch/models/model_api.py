@@ -31,6 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import get_ctx, shard
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.params import leaves, materialize
@@ -146,9 +147,25 @@ def loss_fn(params: nn.Module, cfg: ArchConfig,
         pad_mask = torch.arange(cfg.vocab_padded,
                                 device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad_mask, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    ce = (logz - gold).mean()
+    if get_ctx() is None:
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, labels[..., None])
+    else:
+        # Vocab-sharded logits (a DTensor): DTensor's logsumexp gathers the
+        # whole vocabulary, and the gather's backward builds a replicated
+        # zeros of the logits' full shape.  The same functions from
+        # reductions over the shards: the max-shifted sum of exps, and a
+        # masked sum with one nonzero term a row (exact).
+        mx = logits.amax(-1, keepdim=True).detach()
+        logz = mx + torch.log(torch.exp(logits - mx).sum(-1, keepdim=True))
+        hit = shard(torch.arange(logits.shape[-1], device=logits.device)
+                    == labels[..., None], "logits")
+        gold = shard(torch.where(hit, logits, 0.0), "logits").sum(
+            -1, keepdim=True)
+    # (B, L, 1) throughout: a DTensor's vocab-sharded gather is a masked
+    # partial sum, which a view of it may not drop a dim of; the constraint
+    # keeps the mean's gradient batch-sharded
+    ce = shard(logz - gold, "act_btd").mean()
     loss = ce + aux_weight * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 

@@ -15,8 +15,9 @@ Under the JAX package's kernel conditions (no carried-in state,
 ``kernels/ssd_chunk.py``) at the reference's choice of Q: on the card the
 CUDA kernel by default, or its plain version after
 ``set_ssd_impl("plain")``, which only tests and the smoke's comparisons
-select.  A carried-in state or another length takes the plain scan.  The
-JAX package's ``shard(...)`` does nothing on one device and is omitted.
+select.  A carried-in state or another length takes the plain scan.
+``shard(...)`` marks the heads and the output with the reference's logical
+names (``distributed/sharding.py``; a no-op without a sharding context).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ssd_chunk as k4
 
 # The reference's ssm._segsum; it lives beside K4's plain version, which
@@ -116,7 +118,7 @@ def mamba_block(p, x: torch.Tensor, *, head_dim: int, state: int,
     xbc = F.silu(xbc)
 
     x_ssm, Bm, Cm = xbc.split([d_inner, state, state], dim=-1)
-    x_ssm = x_ssm.reshape(B, L, H, head_dim)
+    x_ssm = shard(x_ssm.reshape(B, L, H, head_dim), "act_bthd")
     A = -torch.exp(p["A_log"])                            # (H,)
 
     if cache is None:
@@ -129,4 +131,4 @@ def mamba_block(p, x: torch.Tensor, *, head_dim: int, state: int,
     y = y.reshape(B, L, d_inner)
     y = y * F.silu(z)
     out = y.to(x.dtype) @ p["w_out"]
-    return out, new_cache
+    return shard(out, "act_btd"), new_cache

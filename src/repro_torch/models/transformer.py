@@ -31,6 +31,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (ATTN_LOGICAL, MLP_LOGICAL,
+                                              MOE_LOGICAL, SSM_LOGICAL,
+                                              gather_fsdp, shard_seq)
 from repro_torch.models import layers as ll
 from repro_torch.models.moe import moe_block
 from repro_torch.models.params import PDef, check_tree, layer
@@ -305,9 +308,12 @@ def _zero(device=None):
 def _attn_mlp_layer(cfg: ArchConfig, lp, x, positions, window: int,
                     cache=None, cache_pos=None, kv_chunk: int = 1024):
     """Returns (x out, the layer's MoE aux loss or 0, the cache)."""
+    attn = gather_fsdp(lp["attn"], ATTN_LOGICAL)
+    mlp = (gather_fsdp(lp["mlp"], MLP_LOGICAL)
+           if cfg.family != "moe" or cfg.shared_expert_d_ff else None)
     h = ll.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     y, new_cache = ll.attention(
-        lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+        attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
         rope_theta=cfg.rope_theta, positions=positions, cache=cache,
         cache_pos=cache_pos, window=window, softcap=cfg.attn_softcap,
         kv_chunk=kv_chunk)
@@ -315,12 +321,12 @@ def _attn_mlp_layer(cfg: ArchConfig, lp, x, positions, window: int,
     h = ll.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     aux = _zero(x.device)
     if cfg.family == "moe":
-        y, aux = moe_block(lp["moe"], h, n_experts=cfg.n_experts,
-                           top_k=cfg.top_k)
+        y, aux = moe_block(gather_fsdp(lp["moe"], MOE_LOGICAL), h,
+                           n_experts=cfg.n_experts, top_k=cfg.top_k)
         if cfg.shared_expert_d_ff:
-            y = y + ll.swiglu(lp["mlp"], h)
+            y = y + ll.swiglu(mlp, h)
     else:
-        y = ll.swiglu(lp["mlp"], h)
+        y = ll.swiglu(mlp, h)
     return x + y, aux, new_cache
 
 
@@ -345,6 +351,7 @@ def dense_forward(model: DenseLM, cfg: ArchConfig, tokens: torch.Tensor, *,
     body = remat_call(_attn_mlp_layer, remat, model)
     for lp in model.layers:
         x, aux, _ = body(cfg, lp, x, positions, lp.window, kv_chunk=kv_chunk)
+        x = shard_seq(x)
         auxs.append(aux)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if last_only:
@@ -379,6 +386,7 @@ def ssm_forward(model: Mamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
     body = remat_call(_mamba_apply, remat, model)
     for lp in model.layers:
         x, _ = body(cfg, lp, x)
+        x = shard_seq(x)
     x = ll.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -409,6 +417,7 @@ def _shared_attn_apply(cfg, sp, x, positions, cache=None, cache_pos=None,
 
 
 def _mamba_apply(cfg, lp, x, cache=None):
+    lp = gather_fsdp(lp, SSM_LOGICAL)
     h = ll.rmsnorm(x, lp["ln"], cfg.norm_eps)
     y, nc = mamba_block(lp, h, head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
                         expand=cfg.ssm_expand, conv_k=cfg.ssm_conv,
@@ -433,7 +442,7 @@ def hybrid_forward(model: Zamba2LM, cfg: ArchConfig, tokens: torch.Tensor, *,
                                   kv_chunk=kv_chunk)
         for lp in blocks:
             x, _ = _mamba_apply(cfg, lp, x)
-        return x
+        return shard_seq(x)
 
     body = remat_call(super_body, remat, model)
     for blocks in model.mamba_super:

@@ -1401,3 +1401,99 @@ def test_train_step_on_card_matches_cpu(cuda, arch, k3_calls, k4_calls):
         rel = float((got[k] - w).norm()) / upd
         sp = max(float((n[2][k] - w).norm()) for n in near) / upd
         assert rel <= 1e-3 + 2 * sp, (k, rel, sp)
+
+
+_DISTRIBUTED_ON_CARD = """
+import math, socket, torch, torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.distributed import collectives as co
+from repro_torch.distributed.moe_a2a import moe_block_a2a
+from repro_torch.distributed.pipeline import make_pipelined_apply
+from repro_torch.kernels import flash_attention as k3
+from repro_torch.launch import cost_analysis
+from repro_torch.models.moe import moe_block
+
+dev = torch.device("cuda", 0)
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=0, world_size=1, device_id=dev)
+try:
+    g = torch.Generator(dev).manual_seed(0)
+    mesh = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    tree = {"a": torch.randn(1000, 37, generator=g, device=dev),
+            "b": torch.randn(5, generator=g, device=dev)}
+    for out in (co.hierarchical_psum(tree, mesh),
+                co.chunked_psum(tree, mesh, ("pod", "data"))):
+        assert all(torch.equal(out[k], v) for k, v in tree.items())
+    red, err = co.compressed_pod_psum(tree, mesh,
+                                      co.init_error_state(tree, mesh))
+    for k, v in tree.items():
+        q, s_ = co.quantize_int8(v.reshape(-1))
+        # half a step, beyond float32's rounding of x / scale and q * scale
+        assert float((red[k] - v).abs().max()) <= float(s_) / 2 * (1 + 2**-14)
+        assert torch.equal(err[k], v.reshape(-1) - co.dequantize_int8(q, s_))
+
+    mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    D, E, Fd, K = 64, 8, 64, 2
+    p = {"router": torch.randn(D, E, generator=g, device=dev) * 0.5,
+         "w_gate": torch.randn(E, D, Fd, generator=g, device=dev) * 0.2,
+         "w_in": torch.randn(E, D, Fd, generator=g, device=dev) * 0.2,
+         "w_out": torch.randn(E, Fd, D, generator=g, device=dev) * 0.2}
+    x = torch.randn(2, 64, D, generator=g, device=dev)
+    y, aux = moe_block_a2a(p, x, mesh2, n_experts=E, top_k=K,
+                           capacity_factor=8.0)
+    want, want_aux = moe_block(p, x, n_experts=E, top_k=K,
+                               capacity_factor=8.0)
+    rel = ((y.to_local() - want).norm(dim=-1) / want.norm(dim=-1)).max()
+    assert float(rel) <= 1e-5, float(rel)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+    mesh1 = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    W = torch.randn(1, 32, 32, generator=g, device=dev).requires_grad_(True)
+    xs = torch.randn(4, 2, 32, generator=g, device=dev)
+    fn = lambda w, z, s: F.gelu(z @ w, approximate="tanh")
+    yp = make_pipelined_apply(fn, mesh1)(W, xs)
+    yp.sum().backward()
+    gp = W.grad.clone()
+    W.grad = None
+    yd = fn(W[0], xs, 0)
+    yd.sum().backward()
+    assert torch.allclose(yp, yd, rtol=1e-6, atol=1e-6)
+    assert torch.allclose(gp, W.grad, rtol=1e-5, atol=1e-5)
+
+    q, k, v = (torch.randn(1, 256, 4, 64, generator=g, device=dev)
+               for _ in range(3))
+    k3.reset_launches()
+    with cost_analysis.CostCounter() as c:
+        k3.flash_attention(q, k, v, causal=True, Bq=256, Bk=256)
+    with FlopCounterMode(display=False) as fc:
+        k3.flash_attention_plain(q, k, v, causal=True, Bk=256)
+    assert k3.LAUNCHES["flash_attention"] == 1
+    assert c.flops == fc.get_total_flops() > 0
+    assert c.bytes == 4 * 4 * q.numel()
+finally:
+    dist.destroy_process_group()
+print("OK")
+"""
+
+
+def test_distributed_tooling_on_a_one_rank_nccl_group(cuda):
+    """The collectives (bit for bit over one rank), moe_block_a2a against
+    moe_block, a one-stage GPipe against its stage function, and the cost
+    counter's report of a K3 launch, on a one-rank NCCL group in a process
+    of its own (a process holds one group)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _DISTRIBUTED_ON_CARD],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ,
+                                   PYTHONPATH=os.path.join(root, "src")))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), \
+        proc.stderr[-3000:]

@@ -61,6 +61,11 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.train.loop", "repro_torch.launch.train",
                 "repro_torch.io.checkpoint", "repro_torch.distributed.fault"}
     assert training <= imported, sorted(training - imported)
+    tooling = {f"repro_torch.distributed.{m}" for m in (
+        "sharding", "collectives", "moe_a2a", "pipeline")} | {
+        f"repro_torch.launch.{m}" for m in (
+            "mesh", "cost_analysis", "dryrun", "roofline")}
+    assert tooling <= imported, sorted(tooling - imported)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
