@@ -1,0 +1,10 @@
+"""sem_iter_s: the window's wall time over the application iterations it
+completed, over SEM operators."""
+NAME, UNIT = "sem_iter_s", "s"
+LAYER = MOVES = None
+
+
+def read(run):
+    if run.operator != "sem" or not run.iterations:
+        return None
+    return run.window_s / run.iterations
